@@ -42,6 +42,7 @@ import vulkansift_tpu_torch as vt
 from vulkansift_tpu_torch.ops import backhalf, blur, cuda_lib, frontend
 from vulkansift_tpu_torch.ops import descriptor as desc_mod
 from vulkansift_tpu_torch.ops import extract, gaussian, orientation
+from vulkansift_tpu_torch.ops.scale_space import upsample2x_linear
 from vulkansift_tpu_torch.pipeline import make_detect_fn
 
 W, H = 1536, 1024
@@ -199,18 +200,36 @@ def check_frontend(cap: dict) -> dict:
                 library_ms=None)
 
 
-def _window_work(recs, count: int, radius_fn, max_radius: int,
+def _window_work(flat, recs, count: int, radius_fn, max_radius: int,
                  ops_per_px: int, out_floats: int):
-    """Bytes and operations the live records need: each window (plus its
-    gradient ring) read once, the records read once, the output written
-    once."""
-    sig = recs.rec[:count, 2].double().cpu().numpy()
-    rad = np.minimum(radius_fn(sig), max_radius)
-    edge = 2 * rad + 1
-    px = float(np.sum(edge * edge))
-    ring = float(np.sum((edge + 2) ** 2))
-    nbytes = 4 * ring + count * (8 * 4 + 8) + 4 * out_floats * count
-    return nbytes, ops_per_px * px, px
+    """Bytes and operations the live records need, as the kernels read
+    them. Bytes: every distinct pyramid pixel read (the four gradient taps
+    of each window cell inside the layer's border), so a window shared by
+    the orientations of one keypoint, or pixels shared by overlapping
+    windows, count once; each record read once; each output row written
+    once. Operations: per record, per window cell inside the border."""
+    rec = recs.rec[:count]
+    base = recs.base[:count]
+    rad = radius_fn(rec[:, 2]).clamp(max=max_radius)
+    d = torch.arange(-max_radius, max_radius + 1, device=flat.device)
+    dy, dx = (g.reshape(1, -1) for g in torch.meshgrid(d, d, indexing="ij"))
+    read = torch.zeros(flat.numel(), dtype=torch.bool, device=flat.device)
+    cells = 0
+    for i in range(0, count, 256):
+        r = rad[i:i + 256, None]
+        cx, cy = rec[i:i + 256, 3:4].long(), rec[i:i + 256, 4:5].long()
+        w, h = rec[i:i + 256, 5:6].long(), rec[i:i + 256, 6:7].long()
+        px, py = cx + dx, cy + dy
+        ok = ((dx.abs() <= r) & (dy.abs() <= r) & (px >= 1) & (px < w - 1)
+              & (py >= 1) & (py < h - 1))
+        idx = (base[i:i + 256, None] + py * w + px)[ok]
+        row = w.expand_as(ok)[ok]
+        cells += idx.numel()
+        for tap in (idx - 1, idx + 1, idx - row, idx + row):
+            read[tap] = True
+    nbytes = (4 * int(read.sum()) + count * (8 * 4 + 8)
+              + 4 * out_floats * count)
+    return nbytes, ops_per_px * cells, cells
 
 
 def check_orientation_hist(cap: dict) -> dict:
@@ -228,9 +247,10 @@ def check_orientation_hist(cap: dict) -> dict:
     # ~30 f32 operations per window pixel (transcendentals counted as one),
     # counted from orientation_hist.cu.
     nbytes, ops, px = _window_work(
-        recs, n, lambda s: np.floor(3.0 * 1.5 * s), r, 30, 36)
+        flat, recs, n, lambda s: torch.floor(3.0 * (1.5 * s)), r, 30, 36)
     b_ms, b_by = bound(nbytes, ops)
-    print(f"orientation_hist keypoints={n} pixels={px:.0f} err={err:.3g} "
+    print(f"orientation_hist keypoints={n} cells={px} bytes={nbytes} "
+          f"err={err:.3g} "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
           f"({b_by})", flush=True)
     return dict(keypoints=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -259,10 +279,12 @@ def check_descriptor(cap: dict) -> dict:
     # ~75 f32 operations per window pixel (8 weighted bin updates,
     # transcendentals counted as one), counted from descriptor.cu.
     nbytes, ops, px = _window_work(
-        recs, n, lambda s: np.floor(math.sqrt(2.0) * 3.0 * s * 2.5 + 0.5),
-        r, 75, 128)
+        flat, recs, n,
+        lambda s: torch.floor(((math.sqrt(2.0) * (3.0 * s)) * 5.0) * 0.5
+                              + 0.5), r, 75, 128)
     b_ms, b_by = bound(nbytes, ops)
-    print(f"descriptor pairs={n} pixels={px:.0f} raw_err={err:.3g} "
+    print(f"descriptor pairs={n} cells={px} bytes={nbytes} "
+          f"raw_err={err:.3g} "
           f"u8_within1={within:.6f} u8_max={qmax} ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})",
           flush=True)
@@ -430,7 +452,7 @@ def main() -> int:
     img = bench_image(H, W, seed=0)
     cfg = vt.SiftConfig(use_input_upsampling=True,
                         max_nb_sift_per_buffer=CAPACITY)
-    detect = make_detect_fn(cfg, W, H, device="cuda")
+    detect = make_detect_fn(cfg, W, H, return_pyramid=True, device="cuda")
     detect(img)
     torch.cuda.synchronize()
     # No host synchronisation between the stages of one detect: PyTorch
@@ -443,13 +465,14 @@ def main() -> int:
     print("sync check: one detect ran with no host synchronisation",
           flush=True)
     cap = {}
-    out = detect(img, capture=cap)
+    out, gaussians, dogs = detect(img, capture=cap)
     torch.cuda.synchronize()
     print(f"capture run: count={int(out.features.count)} "
           f"lost={int(out.lost)}", flush=True)
     x = torch.from_numpy(img).cuda().to(torch.float32) * (1.0 / 255.0)
-    from vulkansift_tpu_torch.ops.scale_space import upsample2x_linear
-    cap.update(config=cfg, seed=upsample2x_linear(x).contiguous())
+    cap.update(config=cfg, gaussians=gaussians, dogs=dogs,
+               dog_threshold=cfg.dog_threshold,
+               seed=upsample2x_linear(x).contiguous())
 
     rows = {
         "blur_dog": check_blur(cap),

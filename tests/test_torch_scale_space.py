@@ -8,6 +8,7 @@ operations exactly (each output is one fixed expression of the inputs).
 """
 
 import dataclasses
+import threading
 
 import numpy as np
 import jax
@@ -116,8 +117,15 @@ def test_dispatch_rule():
 
     assert cuda_lib.use_kernel(Fake("cuda")) is True
     assert cuda_lib.use_kernel(Fake("cpu")) is False
+    other = []
     with cuda_lib.force_plain():
         assert cuda_lib.use_kernel(Fake("cuda")) is False
+        # The switch holds for its own thread only.
+        t = threading.Thread(
+            target=lambda: other.append(cuda_lib.use_kernel(Fake("cuda"))))
+        t.start()
+        t.join()
+    assert other == [True]
     assert cuda_lib.use_kernel(Fake("cuda")) is True
     with pytest.raises(DeviceError):
         cuda_lib.use_kernel(Fake("meta"))

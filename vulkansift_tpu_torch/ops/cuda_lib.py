@@ -15,7 +15,8 @@ Dispatch rule of every wrapper (:func:`use_kernel`): a CPU tensor takes the
 plain PyTorch version, a CUDA tensor launches the kernel. The only way a
 CUDA tensor reaches a plain version is an explicit :func:`force_plain`
 block, which exists so that a run on the card can compare the whole
-pipeline with its plain counterpart.
+pipeline with its plain counterpart; the block holds for its own thread
+only.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-_force_plain = False
+_local = threading.local()  # .force_plain, set inside force_plain()
 
 
 def nvcc_path() -> str:
@@ -144,20 +145,20 @@ def use_kernel(t: torch.Tensor) -> bool:
         return False
     if t.device.type != "cuda":
         raise DeviceError(f"no kernel for device {t.device}")
-    return not _force_plain
+    return not getattr(_local, "force_plain", False)
 
 
 @contextlib.contextmanager
 def force_plain() -> Iterator[None]:
     """Run every wrapper's plain version, CUDA tensors included, inside the
-    block (for comparing the whole pipeline with its plain counterpart)."""
-    global _force_plain
-    prev = _force_plain
-    _force_plain = True
+    block and on the calling thread only (for comparing the whole pipeline
+    with its plain counterpart). Other threads keep launching kernels."""
+    prev = getattr(_local, "force_plain", False)
+    _local.force_plain = True
     try:
         yield
     finally:
-        _force_plain = prev
+        _local.force_plain = prev
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

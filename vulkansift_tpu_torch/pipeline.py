@@ -49,9 +49,8 @@ def make_detect_fn(config: SiftConfig, width: int, height: int, *,
     Returns ``detect(image_u8, capture=None) -> DetectOutput`` (or
     ``(DetectOutput, gaussians, dogs)`` with ``return_pyramid``). The image
     is an (H, W) uint8 array or tensor; it is moved to the function's
-    device. ``capture``, a dict, receives the intermediate tensors the
-    kernels were given (pyramid, DoG stacks, back-half records), for
-    comparisons on the card.
+    device. ``capture``, a dict, receives the back half's kernel inputs
+    (see :func:`.ops.backhalf.run_backhalf`), for comparisons on the card.
     """
     cfg = config
     dev = resolve_device(device, cfg.device_index)
@@ -90,9 +89,6 @@ def make_detect_fn(config: SiftConfig, width: int, height: int, *,
                 seed_sigma=cfg.seed_scale_sigma,
                 octave_idx=o - (1 if cfg.use_input_upsampling else 0),
                 code=code))
-        if capture is not None:
-            capture.update(gaussians=ss.gaussians, dogs=ss.dogs,
-                           dog_threshold=cfg.dog_threshold)
 
         fields, count, per_octave, lost = backhalf.run_backhalf(
             ss.flat, ss.offsets, refined, config=cfg, oct_res=oct_res,
