@@ -5,19 +5,29 @@
 
 1. Prints the card (name, power limit) and the torch, CUDA and nvcc
    versions.
-2. Builds the four kernels from ``vulkansift_tpu_torch/csrc`` into the
-   git-ignored ``build/`` (nvcc, sm_90a) and prints the build seconds.
-3. Detects a 1536x1024 textured frame under
+2. Builds the five kernels from ``vulkansift_tpu_torch/csrc`` into the
+   git-ignored ``build/`` (nvcc, sm_90a, one process per source) and prints
+   the build seconds.
+3. Detects a 1536x1024 textured frame and matches two buffers under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation
-   inside a detect), then once more to get the main path's real inputs,
-   holds each kernel against its plain PyTorch version on the card at those
-   shapes, and times both (CUDA events).
-4. Drives the main path: ``SiftInstance.detect_features`` at 1536x1024
+   inside a detect or a ``match_features``), then detects once more to get
+   the main path's real inputs, holds each detect kernel against its plain
+   PyTorch version on the card at those shapes, holds the 2-NN matcher bit
+   for bit against its plain version at 16384x16384 and at counts
+   (16384, 16001) with duplicated rows, and times each (CUDA events).
+4. Drives the detect path: ``SiftInstance.detect_features`` at 1536x1024
    (upsampling, capacity 32768) into buffers 0 and 1, with every launch
-   counter set to 0 just before and read just after, and checks the
-   result against the same pipeline run with every wrapper forced to its
-   plain version.
-5. Prints the kernel table as one JSON line, the card line, and as the
+   counter set to 0 just before and read just after, and checks the result
+   against the same pipeline run with every wrapper forced to its plain
+   version.
+5. Drives the match path the same way: detect frame A into buffer 0 and
+   frame B (A moved 7 px right and 5 px down) into buffer 1,
+   ``match_features(0, 1)``, ``get_matches_number``, ``download_matches``
+   and ``match_features(1, 0)`` for the cross-check; at least 90 % of the
+   Lowe-0.75 cross-checked matches must land within 1.5 px of the known
+   translation, and the downloaded bytes must equal those of the same
+   matching with the plain version.
+6. Prints the kernel table as one JSON line, the card line, and as the
    last line ``{"ok": true, "device": {...}}``, after a short
    torch.profiler breakdown of three frames (device busy time, idle share,
    the kernels that take the most device time).
@@ -41,7 +51,9 @@ import torch
 import vulkansift_tpu_torch as vt
 from vulkansift_tpu_torch.ops import backhalf, blur, cuda_lib, frontend
 from vulkansift_tpu_torch.ops import descriptor as desc_mod
-from vulkansift_tpu_torch.ops import extract, gaussian, orientation
+from vulkansift_tpu_torch.ops import extract, gaussian
+from vulkansift_tpu_torch.ops import match as match_mod
+from vulkansift_tpu_torch.ops import orientation
 from vulkansift_tpu_torch.ops.scale_space import upsample2x_linear
 from vulkansift_tpu_torch.pipeline import make_detect_fn
 
@@ -49,6 +61,14 @@ W, H = 1536, 1024
 CAPACITY = 32768
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8/u8 tensor cores (data sheet)
+# SIMT dp4a issue rate assumed for the matcher's own ceiling: 64 results per
+# clock per SM (the CUDA guide's 32-bit integer multiply-add rate for
+# compute capability 9.0), 132 SMs.
+DP4A_PER_CLOCK_PER_SM = 64
+SMS = 132
+MATCH_N = 16384               # the JAX bench's sift_match_2nn_16k_ms shape
+SHIFT = (7, 5)                # frame B = frame A moved right, down (px)
 REPS = 20                     # kernel timing repetitions
 PLAIN_REPS = 5                # plain-version and library timing repetitions
 WARMUP_FRAMES = 3
@@ -58,13 +78,16 @@ REPLACES = {
     "frontend": "vulkansift_tpu/ops/pallas_frontend.py:327",
     "orientation_hist": "vulkansift_tpu/ops/pallas_backhalf.py:403",
     "descriptor": "vulkansift_tpu/ops/pallas_backhalf.py:677",
+    "match_2nn": "vulkansift_tpu/ops/pallas_match.py:222",
 }
 WRAPPERS = {
     "blur_dog": blur.blur_dog,
     "frontend": frontend.frontend,
     "orientation_hist": backhalf.orientation_hist,
     "descriptor": backhalf.descriptor,
+    "match_2nn": match_mod.match_2nn_tiles,
 }
+DETECT_KERNELS = ("blur_dog", "frontend", "orientation_hist", "descriptor")
 
 
 def bench_image(h: int, w: int, seed: int = 0) -> np.ndarray:
@@ -108,9 +131,9 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -293,6 +316,85 @@ def check_descriptor(cap: dict) -> dict:
                 library_ms=None)
 
 
+def _cuda_count(n: int) -> torch.Tensor:
+    return torch.full((), n, dtype=torch.int32, device="cuda")
+
+
+def _rand_desc(seed: int, n: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        rng.integers(0, 256, (n, 128), dtype=np.uint8)).cuda()
+
+
+def _match_bit_exact(a, ca, b, cb, what: str) -> int:
+    """Kernel vs plain version: every output of every row, bit for bit."""
+    k = match_mod.match_2nn_tiles(a, ca, b, cb)
+    p = match_mod.top2_plain(a, ca, b, cb)
+    err = max(int((x.long() - y.long()).abs().max()) for x, y in zip(k, p))
+    check(err == 0, f"match_2nn {what}: max diff {err} against plain")
+    print(f"match_2nn {what} bit-exact", flush=True)
+    return err
+
+
+def match_bounds(na: int, nb: int, capacity: int):
+    """The matcher's bound for ``na`` x ``nb`` live rows at an output
+    capacity of ``capacity`` rows: (ms, what bounds it) from the bytes
+    (each live descriptor read once, four int32 outputs per row, two
+    counts) and the u8 products at the tensor cores' int8 rate; and the
+    kernel's own ceiling, its 32 dp4a per pair at the SIMT dp4a rate."""
+    b_ms, b_by = bound(128 * (na + nb) + 4 * 4 * capacity + 2 * 4,
+                       2 * 128 * na * nb, INT8_OPS_PER_S)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0])
+    dp4a_ms = (na * nb * 32 / (SMS * DP4A_PER_CLOCK_PER_SM * clock_mhz * 1e6)
+               * 1e3)
+    return b_ms, b_by, dp4a_ms
+
+
+def check_match() -> dict:
+    """The JAX bench's 16384x16384 shape (descriptors from seeds 0 and 1,
+    full counts), then counts (16384, 16001) with duplicated B rows across
+    the kernel's 32-row tiles and its 2016-row slices at that count, copies
+    of A rows, and B rows past count_b that would win if they were read."""
+    n = MATCH_N
+    a, b = _rand_desc(0, n), _rand_desc(1, n)
+    cnt = _cuda_count(n)
+    err = _match_bit_exact(a, cnt, b, cnt, f"{n}x{n}")
+    b2 = b.clone()
+    for src, dst in ((5, 2021), (7, 31), (40, 32), (3000, 2015),
+                     (3000, 2016), (10, 650)):
+        b2[dst] = b2[src]
+    b2[100] = a[3]
+    b2[4100] = a[3]
+    b2[16000] = a[4]
+    b2[16001:] = a[:n - 16001]
+    err = max(err, _match_bit_exact(a, cnt, b2, _cuda_count(16001),
+                                    "counts (16384, 16001) with duplicates"))
+    del b2
+    ms = median_ms(lambda: match_mod.match_2nn_tiles(a, cnt, b, cnt), REPS)
+    plain_ms = median_ms(lambda: match_mod.top2_plain(a, cnt, b, cnt),
+                         PLAIN_REPS)
+    # Yardstick only, not library_ms: no single PyTorch call computes a 2-NN
+    # with earliest-index ties. The f32 product of the same shapes (TF32
+    # off) is the distances' dot products alone.
+    af, bf = a.float(), b.float()
+    mm_ms = median_ms(lambda: torch.mm(af, bf.T), PLAIN_REPS)
+    del af, bf
+    b_ms, b_by, dp4a_ms = match_bounds(n, n, n)
+    print(f"match_2nn {n}x{n} err={err} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"library_ms=null", flush=True)
+    print(f"match_2nn yardsticks: torch.mm f32 {n}x128x{n} (TF32 off) "
+          f"{mm_ms:.4f} ms; dp4a ceiling {dp4a_ms:.4f} ms "
+          f"({n * n * 32} dp4a at {DP4A_PER_CLOCK_PER_SM}/clock/SM x {SMS} "
+          f"SMs at the max SM clock)", flush=True)
+    return dict(shape=[n, n], max_abs_err=float(err), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, mm_f32_ms=mm_ms, dp4a_ceiling_ms=dp4a_ms)
+
+
 # -- the slice ------------------------------------------------------------------
 
 def compare_with_plain(feats: np.ndarray, plain: np.ndarray) -> dict:
@@ -353,11 +455,11 @@ def run_slice(img: np.ndarray) -> dict:
         t_download.append((time.perf_counter() - t0) * 1e3)
         frames += 1
     torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    launches = {k: WRAPPERS[k].launches for k in DETECT_KERNELS}
     print("kernels " + " ".join(f"{k}={v}" for k, v in launches.items()),
           flush=True)
     for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
+        check(v > 0, f"kernel {k} was not launched on the detect path")
 
     b = (TIMED_FRAMES - 1) % 2
     count = inst.get_features_number(b)
@@ -383,6 +485,99 @@ def run_slice(img: np.ndarray) -> dict:
                frame_ms=t_detect, frame_ms_with_download=t_download,
                plain_comparison=cmp)
     print("slice " + json.dumps(res), flush=True)
+    return res
+
+
+def shifted(img: np.ndarray, dx: int, dy: int) -> np.ndarray:
+    """``img`` moved ``dx`` px right and ``dy`` px down, edge-padded and
+    cropped to its size: a feature at (x, y) moves to (x + dx, y + dy)."""
+    h, w = img.shape
+    return np.ascontiguousarray(
+        np.pad(img, ((dy, 0), (dx, 0)), mode="edge")[:h, :w])
+
+
+def run_match(img: np.ndarray) -> dict:
+    """The match path at the headline configuration, as
+    ``examples/sift_match.py`` drives it."""
+    cfg = vt.SiftConfig(use_input_upsampling=True,
+                        max_nb_sift_per_buffer=CAPACITY)
+    inst = vt.SiftInstance(cfg, device="cuda")
+    img_b = shifted(img, *SHIFT)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    inst.detect_features(img, 0)
+    inst.detect_features(img_b, 1)
+    inst.match_features(0, 1)
+    n_match = inst.get_matches_number()
+    m_ab = inst.download_matches()
+    inst.match_features(1, 0)
+    m_ba = inst.download_matches()
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    print("match path kernels "
+          + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was not launched on the match path")
+
+    n_a, n_b = inst.get_features_number(0), inst.get_features_number(1)
+    check(n_a > 0 and n_b > 0, "no features detected")
+    check(n_match == n_a and len(m_ab) == n_a and len(m_ba) == n_b,
+          f"match counts {n_match}/{len(m_ab)}/{len(m_ba)} vs features "
+          f"{n_a}/{n_b}")
+    for name in ("idx_b1", "idx_b2"):
+        check(bool((m_ab[name] < n_b).all()), f"{name} past buffer 1's count")
+    check(bool(np.isfinite(m_ab["dist_a_b1"]).all()), "non-finite d1")
+    fa, fb = inst.download_features(0), inst.download_features(1)
+    lowe = m_ab["dist_a_b1"] < 0.75 * m_ab["dist_a_b2"]
+    cross = m_ba["idx_b1"][m_ab["idx_b1"]] == m_ab["idx_a"]
+    keep = lowe & cross
+    j = m_ab["idx_b1"]
+    err = np.hypot(fb["x"][j] - fa["x"] - SHIFT[0],
+                   fb["y"][j] - fa["y"] - SHIFT[1])
+    n_keep = int(keep.sum())
+    share = float((err[keep] <= 1.5).mean()) if n_keep else 0.0
+    print(f"translation check: {n_keep} Lowe-0.75 cross-checked matches "
+          f"of {n_a}, {share:.6f} within 1.5 px of {SHIFT}", flush=True)
+    check(share >= 0.9, f"translation share {share} < 0.9")
+
+    with cuda_lib.force_plain():
+        inst.match_features(0, 1)
+        plain = inst.download_matches()
+    check(plain.tobytes() == m_ab.tobytes(),
+          "download_matches bytes differ from the plain matcher's")
+
+    # The kernel alone on the frame's buffers: live counts (n_a, n_b) read
+    # on the device, launched at the capacity.
+    fa_t, fb_t = inst._buffers[0].features, inst._buffers[1].features
+    kernel_ms = median_ms(lambda: match_mod.match_2nn_tiles(
+        fa_t.descriptor, fa_t.count, fb_t.descriptor, fb_t.count), REPS)
+    k_bound_ms, k_bound_by, k_dp4a_ms = match_bounds(n_a, n_b, CAPACITY)
+
+    def timed(download: bool) -> list:
+        out = []
+        for i in range(TIMED_FRAMES + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inst.match_features(0, 1)
+            inst.get_matches_number()
+            if download:
+                inst.download_matches()
+            torch.cuda.synchronize()
+            if i:  # the first is a warm-up
+                out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    t_match, t_dl = timed(False), timed(True)
+    res = dict(launches=launches, features=[n_a, n_b], matches=n_match,
+               kept=n_keep, translation_share=share,
+               kernel_ms_at_counts=kernel_ms,
+               kernel_bound_ms_at_counts=k_bound_ms,
+               kernel_bound_by_at_counts=k_bound_by,
+               dp4a_ceiling_ms_at_counts=k_dp4a_ms,
+               match_ms_median=statistics.median(t_match),
+               match_ms_with_download_median=statistics.median(t_dl),
+               match_ms=t_match, match_ms_with_download=t_dl)
+    print("match " + json.dumps(res), flush=True)
     return res
 
 
@@ -454,16 +649,25 @@ def main() -> int:
                         max_nb_sift_per_buffer=CAPACITY)
     detect = make_detect_fn(cfg, W, H, return_pyramid=True, device="cuda")
     detect(img)
+    sync_inst = vt.SiftInstance(cfg, device="cuda")
+    sync_inst.detect_features(img, 0)
+    sync_inst.detect_features(img, 1)
+    sync_inst.match_features(0, 1)
     torch.cuda.synchronize()
-    # No host synchronisation between the stages of one detect: PyTorch
-    # raises on any synchronising call inside this block.
+    # No host synchronisation between the stages of one detect, nor in a
+    # match_features: PyTorch raises on any synchronising call inside this
+    # block.
     torch.cuda.set_sync_debug_mode("error")
     try:
         detect(img)
+        sync_inst.match_features(0, 1)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    print("sync check: one detect ran with no host synchronisation",
-          flush=True)
+    check(sync_inst.get_matches_number()
+          == sync_inst.get_features_number(0), "sync-check match count")
+    del sync_inst
+    print("sync check: one detect and one match_features ran with no host "
+          "synchronisation", flush=True)
     cap = {}
     out, gaussians, dogs = detect(img, capture=cap)
     torch.cuda.synchronize()
@@ -482,15 +686,19 @@ def main() -> int:
     }
     del cap
     torch.cuda.empty_cache()
+    rows["match_2nn"] = check_match()
+    torch.cuda.empty_cache()
     res = run_slice(img)
+    res_match = run_match(img)
     profile_frames(img)
 
     kernels = []
     for name, r in rows.items():
+        path = res_match if name == "match_2nn" else res
         kernels.append(dict(
             name=name, route="cuda",
             source=f"vulkansift_tpu_torch/csrc/{name}.cu",
-            replaces=REPLACES[name], launches=res["launches"][name],
+            replaces=REPLACES[name], launches=path["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))

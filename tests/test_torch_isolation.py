@@ -14,8 +14,9 @@ import importlib.util, sys
 import vulkansift_tpu_torch
 import vulkansift_tpu_torch.instance, vulkansift_tpu_torch.pipeline
 from vulkansift_tpu_torch.ops import (backhalf, blur, cuda_lib, descriptor,
-                                      extract, frontend, orientation,
+                                      extract, frontend, match, orientation,
                                       patches, scale_space)
+import vulkansift_tpu_torch.utils.logging
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
@@ -35,6 +36,7 @@ try:
     cuda_lib.library("blur_dog")
 except DeviceError:
     print("BUILD RAISED")
+print("RUNTIME", vulkansift_tpu_torch.load_runtime().name)
 """
 
 
@@ -49,3 +51,4 @@ def test_port_imports_no_jax_and_needs_cuda_or_cpu():
     assert "BAD []" in lines, res.stdout
     assert lines.count("RAISED") == 2, res.stdout
     assert "BUILD RAISED" in lines, res.stdout
+    assert "RUNTIME DEVICE_ERROR" in lines, res.stdout

@@ -106,8 +106,8 @@ class SiftConfig:
     pyramid_precision: PyramidPrecision = PyramidPrecision.FLOAT32
 
     # --- Knobs of the JAX package (no reference equivalent) ---
-    # Keep the gaussian/DoG pyramids resident per buffer for the debug
-    # APIs of a later slice.
+    # Keep each buffer's gaussian/DoG pyramids resident for the
+    # scale-space debug APIs of SiftInstance.
     retain_pyramid: bool = True
     # Accepted and validated for compatibility; the port runs at the exact
     # resolution (these bound XLA compiles in the JAX package).

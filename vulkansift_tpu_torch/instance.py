@@ -1,29 +1,58 @@
-"""Public instance API (the detect half of the reference's C ABI).
+"""Public instance API: the reference's C ABI (vulkansift.h:23-111) as a
+Python class plus module-level helpers.
 
-Port of ``vulkansift_tpu/instance.py``: a :class:`SiftInstance` owns
+Port of ``vulkansift_tpu/instance.py``. A :class:`SiftInstance` owns
 ``config.sift_buffer_count`` feature buffers on one device.
-``detect_features`` leaves its result and counts on the device and returns
-without waiting; ``get_features_number`` and ``download_features`` block
-until the data is there, like the reference's fence waits;
-``is_buffer_available`` polls without blocking. Matching and the
-scale-space debug APIs (which need ``config.retain_pyramid``) come with
-later slices; until then no pyramid is kept per buffer.
+``detect_features`` and ``match_features`` leave their results and counts
+on the device and return without waiting; ``get_features_number``,
+``get_matches_number`` and the downloads block until the data is there,
+like the reference's fence waits; ``is_buffer_available`` polls without
+blocking. With ``config.retain_pyramid`` each buffer keeps the gaussian and
+DoG stacks of its last detect for the scale-space debug APIs.
+``load_runtime``, ``unload_runtime`` and ``get_available_devices`` probe
+``torch.cuda``. The JAX package's XProf hooks (``start_trace`` /
+``stop_trace``) have no counterpart yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .config import SiftConfig, get_default_config
 from .errors import DeviceError, InvalidInputError, Result
-from .pipeline import make_detect_fn
-from .types import (FEATURE_DTYPE, Features, features_from_numpy,
-                    features_to_numpy)
+from .ops.match import match_2nn_fused
+from .pipeline import make_detect_fn, octave_plan
+from .types import (FEATURE_DTYPE, Features, Matches2NN, features_from_numpy,
+                    features_to_numpy, matches_to_numpy)
 from .utils.device import DeviceLike, resolve_device
+from .utils.logging import logger
+
+
+def load_runtime() -> Result:
+    """Probe the CUDA runtime (parity: vksift_loadVulkan). Returns
+    ``Result.SUCCESS`` when a card is usable and ``Result.DEVICE_ERROR``,
+    without raising, when none is, so that a caller can turn to CPU SIFT."""
+    if torch.cuda.is_available() and torch.cuda.device_count() > 0:
+        return Result.SUCCESS
+    logger.error("load_runtime() failure: no usable CUDA device")
+    return Result.DEVICE_ERROR
+
+
+def unload_runtime() -> None:
+    """Parity: vksift_unloadVulkan; a no-op, PyTorch owns the CUDA
+    context."""
+
+
+def get_available_devices() -> List[str]:
+    """Parity: vksift_getAvailableGPUs: ``"cuda:<name>"`` per card."""
+    if not torch.cuda.is_available():
+        return []
+    return [f"cuda:{torch.cuda.get_device_name(i)}"
+            for i in range(torch.cuda.device_count())]
 
 
 @dataclasses.dataclass
@@ -36,6 +65,10 @@ class _BufferState:
     per_octave_counts: object = ()
     lost: object = None
     done: Optional[torch.cuda.Event] = None
+    # The octave plan and pyramid of the last detect, for the debug APIs.
+    octave_resolutions: Tuple[Tuple[int, int], ...] = ()
+    gaussians: Optional[tuple] = None
+    dogs: Optional[tuple] = None
 
     def sync_counts(self) -> None:
         if self.count is None:
@@ -44,11 +77,16 @@ class _BufferState:
             self.per_octave_counts = tuple(
                 int(c) for c in self.per_octave_counts.cpu())
             self.lost = int(host[1])
+            if self.lost > 0:
+                logger.warning(
+                    "Buffer too small to store all detected features "
+                    "(%d features lost)", self.lost)
 
 
 class SiftInstance:
-    """SIFT detection engine bound to one device (default ``"cuda"``; pass
-    ``device="cpu"`` to run the plain versions on the CPU)."""
+    """SIFT detection and matching engine bound to one device (default
+    ``"cuda"``; pass ``device="cpu"`` to run the plain versions on the
+    CPU)."""
 
     def __init__(self, config: Optional[SiftConfig] = None,
                  on_error: Optional[Callable[[Result], None]] = None, *,
@@ -74,6 +112,8 @@ class SiftInstance:
             _BufferState(features=Features.empty(
                 config.max_nb_sift_per_buffer, self.device))
             for _ in range(config.sift_buffer_count)]
+        self._matches: Optional[Matches2NN] = None
+        self._matches_count: Optional[int] = 0
         self._closed = False
 
     # -- lifecycle ------------------------------------------------------
@@ -81,6 +121,7 @@ class SiftInstance:
         """Parity: vksift_destroyInstance."""
         self._buffers = []
         self._detect_fns = {}
+        self._matches = None
         self._closed = True
 
     def __enter__(self) -> "SiftInstance":
@@ -126,19 +167,65 @@ class SiftInstance:
         try:
             if key not in self._detect_fns:
                 self._detect_fns[key] = make_detect_fn(
-                    self.config, width, height, device=self.device)
+                    self.config, width, height,
+                    return_pyramid=self.config.retain_pyramid,
+                    device=self.device)
             out = self._detect_fns[key](image)
         except (RuntimeError, OSError) as e:
             self._dispatch_error(Result.DEVICE_ERROR)
             raise DeviceError("detection pipeline failure") from e
+        gauss = dogs = None
+        if self.config.retain_pyramid:
+            out, gauss, dogs = out
         buf.features = out.features
         buf.count = None
         buf.per_octave_counts = out.per_octave_counts
         buf.lost = out.lost
+        buf.octave_resolutions = octave_plan(self.config, width, height)
+        buf.gaussians, buf.dogs = gauss, dogs
         buf.done = None
         if self.device.type == "cuda":
             buf.done = torch.cuda.Event()
             buf.done.record(torch.cuda.current_stream(self.device))
+
+    # -- matching -------------------------------------------------------
+    def match_features(self, buffer_id_a: int, buffer_id_b: int) -> None:
+        """2-NN match buffer A's features against buffer B's (parity:
+        vksift_matchFeatures). Returns without waiting: the live counts
+        stay on the device and the matcher reads them there."""
+        buf_a = self._check_buffer(buffer_id_a)
+        buf_b = self._check_buffer(buffer_id_b)
+        try:
+            self._matches = match_2nn_fused(
+                buf_a.features.descriptor, buf_a.features.count,
+                buf_b.features.descriptor, buf_b.features.count)
+        except (RuntimeError, OSError) as e:
+            self._dispatch_error(Result.DEVICE_ERROR)
+            raise DeviceError("matching pipeline failure") from e
+        self._matches_count = None
+
+    def _sync_matches_count(self) -> int:
+        # Matches2NN.count is a copy of A's count taken at dispatch, so a
+        # later detect or upload into A cannot change it.
+        if self._matches_count is None:
+            self._matches_count = int(self._matches.count)
+        return self._matches_count
+
+    def get_matches_number(self) -> int:
+        """Parity: vksift_getMatchesNumber; blocks until the match count is
+        on the host (first call only)."""
+        if self._closed:
+            raise self._invalid("instance is closed")
+        return self._sync_matches_count()
+
+    def download_matches(self) -> np.ndarray:
+        """Blocking download of the matches as a ``MATCH_DTYPE`` structured
+        array (parity: vksift_downloadMatches)."""
+        if self._closed:
+            raise self._invalid("instance is closed")
+        if self._matches is None:
+            raise self._invalid("no matches computed yet")
+        return matches_to_numpy(self._matches, self._sync_matches_count())
 
     # -- data transfer (blocking) ---------------------------------------
     def get_features_number(self, buffer_id: int) -> int:
@@ -179,10 +266,51 @@ class SiftInstance:
         buf.count = int(feats.shape[0])
         buf.lost = 0
         buf.done = None
+        # Uploaded features carry no scale-space: the debug APIs must not
+        # answer for an earlier detect into this buffer.
         buf.per_octave_counts = ()
+        buf.octave_resolutions = ()
+        buf.gaussians = buf.dogs = None
 
     def is_buffer_available(self, buffer_id: int) -> bool:
         """Non-blocking poll: True when no device work on the buffer is in
         flight (parity: vksift_isBufferAvailable)."""
         buf = self._check_buffer(buffer_id)
         return buf.done is None or buf.done.query()
+
+    # -- scale-space access (debug) ---------------------------------------
+    def get_scale_space_nb_octaves(self, buffer_id: int = 0) -> int:
+        """Parity: vksift_getScaleSpaceNbOctaves (0 after an upload)."""
+        return len(self._check_buffer(buffer_id).octave_resolutions)
+
+    def get_scale_space_octave_resolution(
+            self, octave: int, buffer_id: int = 0) -> Tuple[int, int]:
+        """Parity: vksift_getScaleSpaceOctaveResolution: (width, height)."""
+        res = self._check_buffer(buffer_id).octave_resolutions
+        if not 0 <= octave < len(res):
+            raise self._invalid(f"octave {octave} out of range")
+        return res[octave]
+
+    def _pyramid_level(self, stacks: Optional[tuple], octave: int,
+                       scale: int) -> np.ndarray:
+        if stacks is None:
+            raise self._invalid(
+                "no pyramid retained (set config.retain_pyramid)")
+        if not 0 <= octave < len(stacks):
+            raise self._invalid(f"octave {octave} out of range")
+        if not 0 <= scale < stacks[octave].shape[0]:
+            raise self._invalid(f"scale {scale} out of range")
+        return stacks[octave][scale].float().cpu().numpy()
+
+    def download_scale_space_image(self, octave: int, scale: int,
+                                   buffer_id: int = 0) -> np.ndarray:
+        """Blocking download of a gaussian pyramid level as float32 (parity:
+        vksift_downloadScaleSpaceImage; FP16 pyramids are converted)."""
+        buf = self._check_buffer(buffer_id)
+        return self._pyramid_level(buf.gaussians, octave, scale)
+
+    def download_dog_image(self, octave: int, scale: int,
+                           buffer_id: int = 0) -> np.ndarray:
+        """Parity: vksift_downloadDoGImage."""
+        buf = self._check_buffer(buffer_id)
+        return self._pyramid_level(buf.dogs, octave, scale)

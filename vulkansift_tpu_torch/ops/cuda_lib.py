@@ -38,7 +38,8 @@ from ..errors import DeviceError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("blur_dog", "frontend", "orientation_hist", "descriptor")
+SOURCES = ("blur_dog", "frontend", "orientation_hist", "descriptor",
+           "match_2nn")
 # --fmad=false: the blur and the Newton walk code reproduce the plain
 # versions' float rounding, which a fused multiply-add would change.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

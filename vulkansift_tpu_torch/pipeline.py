@@ -19,7 +19,8 @@ on the device.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+import dataclasses
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +43,14 @@ def _empty_output(capacity: int, nb_oct: int, device) -> DetectOutput:
                         torch.zeros(nb_oct, dtype=torch.int32, device=device))
 
 
+def octave_plan(config: SiftConfig, width: int,
+                height: int) -> Tuple[Tuple[int, int], ...]:
+    """The per-octave (width, height) sizes the detect function runs for
+    this resolution (parity: ``pipeline.octave_plan`` with ``bucket=1``:
+    the port always runs at the exact resolution)."""
+    return config.octave_resolutions(width, height)
+
+
 def make_detect_fn(config: SiftConfig, width: int, height: int, *,
                    return_pyramid: bool = False, device: DeviceLike = "cuda"):
     """Build the detect function for one static resolution.
@@ -55,7 +64,7 @@ def make_detect_fn(config: SiftConfig, width: int, height: int, *,
     cfg = config
     dev = resolve_device(device, cfg.device_index)
     s = cfg.nb_scales_per_octave
-    oct_res = cfg.octave_resolutions(width, height)  # exact resolution
+    oct_res = octave_plan(cfg, width, height)
     nb_oct = len(oct_res)
     caps = cfg.octave_section_capacities(nb_oct)
     oct_shapes = tuple((h, w) for (w, h) in oct_res)
@@ -99,3 +108,27 @@ def make_detect_fn(config: SiftConfig, width: int, height: int, *,
         return out
 
     return detect
+
+
+def make_detect_batched(config: SiftConfig, width: int, height: int, *,
+                        device: DeviceLike = "cuda"):
+    """Batched detect: (B, H, W) uint8 images -> :class:`DetectOutput` whose
+    every tensor has a leading batch dimension (parity:
+    ``pipeline.make_detect_batched``). A loop over the single-image
+    function, as the JAX package's ``lax.map`` is a scan of it; the outputs
+    are stacked."""
+    detect = make_detect_fn(config, width, height, device=device)
+
+    def detect_batched(images) -> DetectOutput:
+        outs = [detect(img) for img in images]
+
+        def stack(get):
+            return torch.stack([get(o) for o in outs])
+
+        feats = Features(**{f.name: stack(lambda o, n=f.name:
+                                          getattr(o.features, n))
+                            for f in dataclasses.fields(Features)})
+        return DetectOutput(feats, stack(lambda o: o.lost),
+                            stack(lambda o: o.per_octave_counts))
+
+    return detect_batched

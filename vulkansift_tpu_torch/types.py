@@ -1,12 +1,14 @@
-"""Feature buffers as torch tensors.
+"""Feature and 2-NN match buffers as torch tensors.
 
-The same structure-of-arrays layout as the JAX package's ``Features``: a
-static capacity N and a device-resident valid count, the replacement for
-the reference's atomic-append buffers. :func:`features_to_numpy` and
-:func:`features_from_numpy` convert to and from a NumPy structured array
-with exactly the ``vksift_Feature`` field layout (``FEATURE_DTYPE``), which
-is byte-compatible with the JAX package's, so a buffer downloaded from one
-package uploads into the other.
+The same structure-of-arrays layout as the JAX package's ``Features`` and
+``Matches2NN``: a static capacity N and a device-resident valid count, the
+replacement for the reference's atomic-append buffers.
+:func:`features_to_numpy` and :func:`features_from_numpy` convert to and
+from a NumPy structured array with exactly the ``vksift_Feature`` field
+layout (``FEATURE_DTYPE``), and :func:`matches_to_numpy` to the
+``vksift_Match_2NN`` layout (``MATCH_DTYPE``); both are byte-compatible with
+the JAX package's, so a buffer downloaded from one package uploads into the
+other.
 """
 
 from __future__ import annotations
@@ -32,6 +34,16 @@ FEATURE_DTYPE = np.dtype([
     ("orientation", np.float32),
     ("intensity", np.float32),
     ("descriptor", np.uint8, (DESC_SIZE,)),
+])
+
+# NumPy structured dtype bit-compatible with vksift_Match_2NN
+# (reference: include/vulkansift/vulkansift_types.h:33-41).
+MATCH_DTYPE = np.dtype([
+    ("idx_a", np.uint32),
+    ("idx_b1", np.uint32),
+    ("idx_b2", np.uint32),
+    ("dist_a_b1", np.float32),
+    ("dist_a_b2", np.float32),
 ])
 
 _FIELDS = ("x", "y", "scale_x", "scale_y", "scale_idx", "octave_idx",
@@ -69,6 +81,24 @@ class Features:
             sigma=z(f32), orientation=z(f32), intensity=z(f32),
             descriptor=z(torch.uint8, DESC_SIZE),
             count=torch.zeros((), dtype=i32, device=device))
+
+
+@dataclasses.dataclass
+class Matches2NN:
+    """2-nearest-neighbour match set; entries [0, count) are valid.
+    Distances are L2 in u8 descriptor space, +inf where a row has no such
+    neighbour (the reference's Get2NearestNeighbors output)."""
+
+    idx_a: torch.Tensor      # i32[N]
+    idx_b1: torch.Tensor     # i32[N] nearest neighbour in set B
+    idx_b2: torch.Tensor     # i32[N] second nearest neighbour in set B
+    dist_a_b1: torch.Tensor  # f32[N]
+    dist_a_b2: torch.Tensor  # f32[N]
+    count: torch.Tensor      # i32[]
+
+    @property
+    def capacity(self) -> int:
+        return self.idx_a.shape[-1]
 
 
 def features_to_numpy(feats: Features,
@@ -109,3 +139,16 @@ def features_from_numpy(arr: np.ndarray, capacity: int,
         intensity=pad(arr["intensity"], np.float32),
         descriptor=pad(arr["descriptor"], np.uint8),
         count=torch.tensor(n, dtype=torch.int32, device=device))
+
+
+def matches_to_numpy(m: Matches2NN, count: Optional[int] = None) -> np.ndarray:
+    """Pack the valid matches into a ``MATCH_DTYPE`` structured array.
+    Blocking: reads the count (when not given) and copies only the valid
+    prefix to the host."""
+    n = int(m.count) if count is None else int(count)
+    out = np.zeros((n,), MATCH_DTYPE)
+    for name in ("idx_a", "idx_b1", "idx_b2"):
+        out[name] = getattr(m, name)[:n].cpu().numpy().astype(np.uint32)
+    for name in ("dist_a_b1", "dist_a_b2"):
+        out[name] = getattr(m, name)[:n].cpu().numpy()
+    return out
