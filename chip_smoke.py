@@ -11,10 +11,15 @@
 3. Detects a 1536x1024 textured frame and matches two buffers under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation
    inside a detect or a ``match_features``), then detects once more to get
-   the main path's real inputs, holds each detect kernel against its plain
-   PyTorch version on the card at those shapes, holds the 2-NN matcher bit
-   for bit against its plain version at 16384x16384 and at counts
-   (16384, 16001) with duplicated rows, and times each (CUDA events).
+   the main path's real inputs and holds each kernel against its plain
+   PyTorch version on the card: the blur bit for bit on all 36 layers of
+   the frame and on ragged and tiny layers (n < k) with every tap count,
+   the frontend on all 7 octaves, the 2-NN matcher bit for bit at
+   16384x16384, with ties on its tile and slice edges (placed from
+   ``ops/match.KERNEL_GEOMETRY``), with a ragged A and with count_b 0
+   and 1. Each kernel is timed on the device (CUDA events around calls
+   queued behind a device-side sleep) and summed over its launches of a
+   frame at their own shapes.
 4. Drives the detect path: ``SiftInstance.detect_features`` at 1536x1024
    (upsampling, capacity 32768) into buffers 0 and 1, with every launch
    counter set to 0 just before and read just after, and checks the result
@@ -27,10 +32,15 @@
    Lowe-0.75 cross-checked matches must land within 1.5 px of the known
    translation, and the downloaded bytes must equal those of the same
    matching with the plain version.
-6. Prints the kernel table as one JSON line, the card line, and as the
-   last line ``{"ok": true, "device": {...}}``, after a short
+6. Prints the per-frame kernel sums and the kernel table as JSON lines,
+   the card line, and as the last line ``{"ok": true, "device": {...}}``,
+   after a short
    torch.profiler breakdown of three frames (device busy time, idle share,
    the kernels that take the most device time).
+
+``--parent DIR`` also builds the blur and matcher sources of the checkout
+at DIR (for example the parent commit, unpacked with ``git archive`` into
+the git-ignored ``build/``) and times them in turns with these.
 
 Any failure raises, so the script exits non-zero and prints no result
 line; it also exits non-zero when no CUDA card is available.
@@ -38,12 +48,15 @@ line; it also exits non-zero when no CUDA card is available.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -62,14 +75,16 @@ CAPACITY = 32768
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8/u8 tensor cores (data sheet)
-# SIMT dp4a issue rate assumed for the matcher's own ceiling: 64 results per
-# clock per SM (the CUDA guide's 32-bit integer multiply-add rate for
+# SIMT dp4a issue rate assumed for the ceiling of a matcher that takes its
+# products on the SIMT pipe (the yardstick the tensor-core design must beat):
+# 64 results per clock per SM (the CUDA guide's 32-bit integer multiply-add rate for
 # compute capability 9.0), 132 SMs.
 DP4A_PER_CLOCK_PER_SM = 64
 SMS = 132
 MATCH_N = 16384               # the JAX bench's sift_match_2nn_16k_ms shape
 SHIFT = (7, 5)                # frame B = frame A moved right, down (px)
 REPS = 20                     # kernel timing repetitions
+SLEEP_CYCLES = 20_000_000     # ~10 ms, longer than queueing REPS calls takes
 PLAIN_REPS = 5                # plain-version and library timing repetitions
 WARMUP_FRAMES = 3
 TIMED_FRAMES = 10
@@ -117,7 +132,9 @@ def card_line() -> str:
 
 
 def median_ms(fn, reps: int) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up,
+    each from an idle stream: the time includes the host's dispatch of the
+    call (used for the plain versions and the yardsticks)."""
     fn()
     times = []
     for _ in range(reps):
@@ -129,6 +146,78 @@ def median_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = REPS) -> float:
+    """Device time per call of a kernel wrapper: after one warm-up, ``reps``
+    calls queued behind a device-side sleep, so that the two events bracket
+    the kernels back to back and not the host's dispatch of each call."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def ab_ms(new, old, reps: int = REPS):
+    """Device ms of two versions of one kernel in turns (old, new, new,
+    old), each the mean of its two turns: (new, old)."""
+    o1, n1, n2, o2 = (device_ms(f, reps) for f in (old, new, new, old))
+    return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+class Parent:
+    """The blur and matcher kernels of another checkout (``--parent DIR``,
+    for example ``git archive`` of the parent commit unpacked into the
+    git-ignored ``build/``), built with the port's nvcc flags and launched
+    through the same C entry points, so that the two designs are timed in
+    one call on one card."""
+
+    def __init__(self, root: str):
+        self.fns = {}
+        procs = []
+        for name, sym, argtypes in (
+                ("blur_dog", "vks_blur_dog", blur._ARGTYPES),
+                ("match_2nn", "vks_match_2nn", match_mod._ARGTYPES)):
+            src = Path(root) / "vulkansift_tpu_torch" / "csrc" / f"{name}.cu"
+            out = cuda_lib.BUILD_DIR / f"parent_{name}.so"
+            cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            procs.append((subprocess.Popen(
+                [cuda_lib.nvcc_path(), *cuda_lib.NVCC_FLAGS, "-o", str(out),
+                 str(src)]), name, sym, argtypes, out))
+        for proc, name, sym, argtypes, out in procs:
+            check(proc.wait() == 0, f"{root}: {name}.cu did not build")
+            fn = getattr(ctypes.CDLL(str(out)), sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            self.fns[name] = fn
+
+    def blur(self, x, taps, with_dog: bool):
+        y = torch.empty_like(x)
+        dog = torch.empty_like(x) if with_dog else None
+        t = np.ascontiguousarray(taps, np.float32)
+        rc = self.fns["blur_dog"](
+            x.data_ptr(), y.data_ptr(), 0 if dog is None else dog.data_ptr(),
+            t.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(t),
+            x.shape[0], x.shape[1], cuda_lib.stream_of(x))
+        cuda_lib.check(rc, "parent blur_dog")
+        return y, dog
+
+    def match(self, a, ca, b, cb):
+        out = tuple(torch.empty(a.shape[0], dtype=torch.int32,
+                                device=a.device) for _ in range(4))
+        rc = self.fns["match_2nn"](
+            a.data_ptr(), ca.data_ptr(), b.data_ptr(), cb.data_ptr(),
+            *(o.data_ptr() for o in out), a.shape[0], b.shape[0],
+            cuda_lib.stream_of(a))
+        cuda_lib.check(rc, "parent match_2nn")
+        return out
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
@@ -144,83 +233,163 @@ def check(cond: bool, what: str) -> None:
 
 # -- per-kernel checks --------------------------------------------------------
 
-def check_blur(cap: dict) -> dict:
-    """Every blur step of octave 0 (3072x2048) on the frame's own layers."""
+def blur_launches(cap: dict):
+    """The 36 blur launches of one detect, with the frame's own inputs:
+    (octave, layer, input, taps, with_dog). Octave 0 blurs its seed (no
+    DoG) and then five layers; every other octave's first layer is a
+    downsample, so it blurs five."""
     cfg = cap["config"]
-    g0 = cap["gaussians"][0]
-    seed = cap["seed"]
     taps = [gaussian.half_kernel(s) for s in gaussian.kernel_sigmas(cfg)]
-    worst = 0.0
+    out = [(0, 0, cap["seed"], taps[0], False)]
+    for o, g in enumerate(cap["gaussians"]):
+        for i in range(1, len(taps)):
+            out.append((o, i, g[i - 1], taps[i], True))
+    return out
+
+
+def blur_bound(x: torch.Tensor, ntaps: int, with_dog: bool):
+    npx, k = x.numel(), ntaps - 1
+    return bound(4 * npx * (3 if with_dog else 2),
+                 npx * (2 * (1 + 3 * k) + (1 if with_dog else 0)))
+
+
+def blur_exact(x, t, with_dog: bool, what: str) -> float:
+    """Kernel vs plain version on one layer: y and dog, bit for bit."""
+    y_k, d_k = blur.blur_dog(x, t, with_dog)
+    y_p, d_p = blur.blur_dog_plain(x, t, with_dog)
+    err = (y_k - y_p).abs().max().item()
+    if with_dog:
+        err = max(err, (d_k - d_p).abs().max().item())
+    check(err == 0.0, f"blur {what} taps={len(t)} err {err}")
+    return err
+
+
+def taps_of_length(n: int) -> np.ndarray:
+    """The port's half-kernel with ``n`` taps (sigma = (n - 1) / 4)."""
+    return gaussian.half_kernel((n - 1) / 4.0)
+
+
+def check_blur(cap: dict, parent) -> dict:
+    """Every blur launch of the frame (36 layers over 7 octaves), bit for
+    bit, timed at its own shape and summed per frame; then ragged and tiny
+    layers (1280x960, 75x41, 5x7 and 7x5, where n < k) with every tap count
+    1..20, with and without the DoG, which reach the border path that the
+    frame's shapes do not. The table row is the 14-tap 3072x2048 layer."""
     rows = []
-    for i, t in enumerate(taps):
-        x = seed if i == 0 else g0[i - 1].contiguous()
-        with_dog = i > 0
-        y_k, d_k = blur.blur_dog(x, t, with_dog)
-        y_p, d_p = blur.blur_dog_plain(x, t, with_dog)
-        err = (y_k - y_p).abs().max().item()
-        if with_dog:
-            err = max(err, (d_k - d_p).abs().max().item())
-        check(err <= 1e-6, f"blur taps={len(t)} err {err}")
-        worst = max(worst, err)
-        k = len(t) - 1
-        ms = median_ms(lambda: blur.blur_dog(x, t, with_dog), REPS)
-        plain_ms = median_ms(lambda: blur.blur_dog_plain(x, t, with_dog),
-                             PLAIN_REPS)
-        # Yardstick: one conv2d of the pre-padded layer with the full 2-D
-        # kernel (f32, TF32 off); the port never calls it.
-        full = np.concatenate([t[:0:-1], t]).astype(np.float32)
-        k2 = torch.from_numpy(np.outer(full, full)).to(x.device)[None, None]
-        xp = x[blur._symmetric_index(x.shape[0], k, x.device)][
-            :, blur._symmetric_index(x.shape[1], k, x.device)][None, None]
-        xp = xp.contiguous()
-        prev_tf32 = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            lib_ms = median_ms(
-                lambda: torch.nn.functional.conv2d(xp, k2), PLAIN_REPS)
-        finally:
-            torch.backends.cudnn.allow_tf32 = prev_tf32
-        npx = x.numel()
-        b_ms, b_by = bound(4 * npx * (3 if with_dog else 2),
-                           npx * (2 * (1 + 3 * k) + (1 if with_dog else 0)))
-        rows.append(dict(taps=len(t), shape=list(x.shape), max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=lib_ms))
-        print(f"blur_dog taps={len(t)} {tuple(x.shape)} err={err:.3g} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
-              f"({b_by}) conv2d_ms={lib_ms:.4f}", flush=True)
-    big = max(rows, key=lambda r: r["taps"])
-    return dict(big, max_abs_err=worst,
-                note="largest-tap layer of octave 0 (3072x2048)")
+    for o, i, x, t, with_dog in blur_launches(cap):
+        err = blur_exact(x, t, with_dog, f"octave {o} layer {i}")
+        ms = device_ms(lambda: blur.blur_dog(x, t, with_dog))
+        b_ms, b_by = blur_bound(x, len(t), with_dog)
+        rows.append(dict(octave=o, layer=i, taps=len(t), shape=list(x.shape),
+                         dog=with_dog, max_abs_err=err, ms=ms, bound_ms=b_ms,
+                         bound_by=b_by, x=x, t=t))
+    frame_ms = sum(r["ms"] for r in rows)
+    frame_bound = sum(r["bound_ms"] for r in rows)
+    for r in rows:
+        print(f"blur_dog octave {r['octave']} layer {r['layer']} "
+              f"taps={r['taps']} {tuple(r['shape'])} dog={r['dog']} "
+              f"bit-exact ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']})", flush=True)
+    print(f"blur_dog per frame: {len(rows)} launches bit-exact, "
+          f"sum ms={frame_ms:.4f} sum bound_ms={frame_bound:.4f}", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n_small = 0
+    for h, w in ((960, 1280), (41, 75), (7, 5), (5, 7)):
+        x = torch.rand((h, w), generator=gen, device="cuda")
+        for n in range(1, 21):
+            for with_dog in (False, True):
+                blur_exact(x, taps_of_length(n), with_dog, f"{w}x{h}")
+                n_small += 1
+    print(f"blur_dog ragged and n<k layers: {n_small} cases bit-exact "
+          f"(1280x960, 75x41, 5x7, 7x5; taps 1..20; with and without DoG)",
+          flush=True)
+
+    big = max((r for r in rows if r["octave"] == 0), key=lambda r: r["taps"])
+    x, t = big["x"], big["t"]
+    k = len(t) - 1
+    plain_ms = median_ms(lambda: blur.blur_dog_plain(x, t, True), PLAIN_REPS)
+    # Yardstick: one conv2d of the pre-padded layer with the full 2-D
+    # kernel (f32, TF32 off); the port never calls it.
+    full = np.concatenate([t[:0:-1], t]).astype(np.float32)
+    k2 = torch.from_numpy(np.outer(full, full)).to(x.device)[None, None]
+    xp = x[blur._symmetric_index(x.shape[0], k, x.device)][
+        :, blur._symmetric_index(x.shape[1], k, x.device)][None, None]
+    xp = xp.contiguous()
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lib_ms = device_ms(lambda: torch.nn.functional.conv2d(xp, k2),
+                           PLAIN_REPS)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    res = dict(taps=big["taps"], shape=big["shape"], max_abs_err=0.0,
+               ms=big["ms"], plain_ms=plain_ms, bound_ms=big["bound_ms"],
+               bound_by=big["bound_by"], library_ms=lib_ms,
+               frame_launches=len(rows), frame_ms=frame_ms,
+               frame_bound_ms=frame_bound,
+               note="14-tap layer of octave 0 (3072x2048) with the DoG")
+    if parent is not None:
+        y_o, d_o = parent.blur(x, t, True)
+        y_n, d_n = blur.blur_dog(x, t, True)
+        check(torch.equal(y_o, y_n) and torch.equal(d_o, d_n),
+              "parent blur_dog differs from this one")
+        res["ms"], res["parent_ms"] = ab_ms(
+            lambda: blur.blur_dog(x, t, True),
+            lambda: parent.blur(x, t, True))
+        res["parent_frame_ms"] = sum(
+            device_ms(lambda: parent.blur(r["x"], r["t"], r["dog"]))
+            for r in rows)
+    print(f"blur_dog taps={res['taps']} {tuple(res['shape'])} ms="
+          f"{res['ms']:.4f} plain_ms={plain_ms:.4f} bound_ms="
+          f"{res['bound_ms']:.4f} ({res['bound_by']}) conv2d_ms={lib_ms:.4f}"
+          + (f" parent_ms={res['parent_ms']:.4f} parent_frame_ms="
+             f"{res['parent_frame_ms']:.4f}" if parent is not None else ""),
+          flush=True)
+    return res
 
 
-def check_frontend(cap: dict) -> dict:
-    """Bit-exact on octaves 0 (3072x2048, timed) and 1 (1536x1024, where
-    this frame's candidates start)."""
-    thr = cap["dog_threshold"]
-    err = 0
-    for o in (1, 0):
-        dog = cap["dogs"][o]
-        code_k, cnt_k = frontend.frontend(dog, thr)
-        code_p, cnt_p = extract.dense_frontend(dog, thr)
-        err = max(err, (code_k.int() - code_p.int()).abs().max().item(),
-                  (cnt_k - cnt_p).abs().max().item())
-        check(err == 0, f"frontend octave {o} not bit-exact: max diff {err}")
-        print(f"frontend octave {o} {tuple(dog.shape)} "
-              f"candidates={int(cnt_k.sum())} bit-exact", flush=True)
-    ms = median_ms(lambda: frontend.frontend(dog, thr), REPS)
-    plain_ms = median_ms(lambda: extract.dense_frontend(dog, thr), PLAIN_REPS)
+def frontend_bound(dog: torch.Tensor):
     ns, h, w = dog.shape
     cells = (ns - 2) * (h - 2) * (w - 2)
     # 147 f32 operations per centre cell, counted from frontend.cu.
-    b_ms, b_by = bound(4 * dog.numel() + cells + 4 * (ns - 2) * (h - 2),
-                       147 * cells)
-    print(f"frontend {tuple(dog.shape)} err={err} ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} "
-          f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
-    return dict(shape=list(dog.shape), max_abs_err=float(err), ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+    return bound(4 * dog.numel() + cells + 4 * (ns - 2) * (h - 2),
+                 147 * cells)
+
+
+def check_frontend(cap: dict) -> dict:
+    """Bit-exact on every octave's DoG stack (the 7 launches of a frame),
+    each timed at its own shape and summed per frame; the table row is
+    octave 0 (5x2048x3072)."""
+    thr = cap["dog_threshold"]
+    frame_ms = frame_bound = 0.0
+    for o, dog in enumerate(cap["dogs"]):
+        code_k, cnt_k = frontend.frontend(dog, thr)
+        code_p, cnt_p = extract.dense_frontend(dog, thr)
+        err = max((code_k.int() - code_p.int()).abs().max().item(),
+                  (cnt_k - cnt_p).abs().max().item())
+        check(err == 0, f"frontend octave {o} not bit-exact: max diff {err}")
+        ms = device_ms(lambda: frontend.frontend(dog, thr))
+        b_ms, b_by = frontend_bound(dog)
+        frame_ms += ms
+        frame_bound += b_ms
+        print(f"frontend octave {o} {tuple(dog.shape)} "
+              f"candidates={int(cnt_k.sum())} bit-exact ms={ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        if o == 0:
+            row = dict(shape=list(dog.shape), max_abs_err=0.0, ms=ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    dog = cap["dogs"][0]
+    row["plain_ms"] = median_ms(lambda: extract.dense_frontend(dog, thr),
+                                PLAIN_REPS)
+    row.update(frame_launches=len(cap["dogs"]), frame_ms=frame_ms,
+               frame_bound_ms=frame_bound)
+    print(f"frontend {tuple(dog.shape)} ms={row['ms']:.4f} "
+          f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+          f"({row['bound_by']}); per frame: {len(cap['dogs'])} launches, "
+          f"sum ms={frame_ms:.4f} sum bound_ms={frame_bound:.4f}",
+          flush=True)
+    return row
 
 
 def _window_work(flat, recs, count: int, radius_fn, max_radius: int,
@@ -262,8 +431,8 @@ def check_orientation_hist(cap: dict) -> dict:
     h_p = orientation.raw_histograms(flat, recs, cnt, ori_radius=r)
     err = (h_k - h_p).abs().max().item()
     check(err <= 1e-4, f"orientation_hist err {err}")
-    ms = median_ms(lambda: backhalf.orientation_hist(
-        flat, recs, cnt, ori_radius=r), REPS)
+    ms = device_ms(lambda: backhalf.orientation_hist(
+        flat, recs, cnt, ori_radius=r))
     plain_ms = median_ms(lambda: orientation.raw_histograms(
         flat, recs, cnt, ori_radius=r), PLAIN_REPS)
     n = int(cnt)
@@ -277,7 +446,8 @@ def check_orientation_hist(cap: dict) -> dict:
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
           f"({b_by})", flush=True)
     return dict(keypoints=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                frame_launches=1, frame_ms=ms, frame_bound_ms=b_ms)
 
 
 def check_descriptor(cap: dict) -> dict:
@@ -295,8 +465,8 @@ def check_descriptor(cap: dict) -> dict:
     qmax = qd.max().item() if n else 0
     check(within >= 0.995 and qmax <= 8,
           f"descriptor u8 within1={within} max={qmax}")
-    ms = median_ms(lambda: backhalf.descriptor(
-        flat, recs, cnt, desc_radius=r, use_vlfeat=vl), REPS)
+    ms = device_ms(lambda: backhalf.descriptor(
+        flat, recs, cnt, desc_radius=r, use_vlfeat=vl))
     plain_ms = median_ms(lambda: desc_mod.raw_descriptors(
         flat, recs, cnt, desc_radius=r, use_vlfeat=vl), PLAIN_REPS)
     # ~75 f32 operations per window pixel (8 weighted bin updates,
@@ -313,7 +483,8 @@ def check_descriptor(cap: dict) -> dict:
           flush=True)
     return dict(pairs=n, max_abs_err=err, u8_within1=within, u8_max=qmax,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                library_ms=None, frame_launches=1, frame_ms=ms,
+                frame_bound_ms=b_ms)
 
 
 def _cuda_count(n: int) -> torch.Tensor:
@@ -341,7 +512,8 @@ def match_bounds(na: int, nb: int, capacity: int):
     capacity of ``capacity`` rows: (ms, what bounds it) from the bytes
     (each live descriptor read once, four int32 outputs per row, two
     counts) and the u8 products at the tensor cores' int8 rate; and the
-    kernel's own ceiling, its 32 dp4a per pair at the SIMT dp4a rate."""
+    SIMT design's ceiling, 32 dp4a per pair at the SIMT dp4a
+    rate."""
     b_ms, b_by = bound(128 * (na + nb) + 4 * 4 * capacity + 2 * 4,
                        2 * 128 * na * nb, INT8_OPS_PER_S)
     clock_mhz = float(subprocess.run(
@@ -353,46 +525,91 @@ def match_bounds(na: int, nb: int, capacity: int):
     return b_ms, b_by, dp4a_ms
 
 
-def check_match() -> dict:
+def edge_duplicates(a: torch.Tensor, b: torch.Tensor, count_b: int):
+    """B with ties on the kernel's edges at ``count_b`` (from
+    ``ops/match.KERNEL_GEOMETRY``): a B row copied across the first two
+    B-tile edges and across every slice edge, one A row's copies on both
+    sides of the first and the last slice edge, and copies of A rows in
+    every B row past ``count_b``, which would win if they were read."""
+    g = match_mod.KERNEL_GEOMETRY
+    tile = g["b_tile_rows"]
+    edges = [s for s, _ in match_mod.kernel_slices(count_b)[1:]
+             if 0 < s < count_b]
+    b = b.clone()
+    for e in [tile, 2 * tile] + edges:
+        b[e] = b[e - 1]
+    b[edges[0] - 3] = a[3]
+    b[edges[0] + 2] = a[3]
+    b[edges[-1] - 1] = a[4]
+    b[edges[-1] + 1] = a[4]
+    b[count_b:] = a[:b.shape[0] - count_b]
+    return b, edges
+
+
+def check_match(parent) -> dict:
     """The JAX bench's 16384x16384 shape (descriptors from seeds 0 and 1,
-    full counts), then counts (16384, 16001) with duplicated B rows across
-    the kernel's 32-row tiles and its 2016-row slices at that count, copies
-    of A rows, and B rows past count_b that would win if they were read."""
+    full counts), then, bit for bit: counts (16384, 16001) with ties on the
+    kernel's B-tile and slice edges at that count; A of 16347 rows (not a
+    multiple of the A tile) with count_a 16284; and count_b 0 and 1."""
+    g = match_mod.KERNEL_GEOMETRY
     n = MATCH_N
     a, b = _rand_desc(0, n), _rand_desc(1, n)
     cnt = _cuda_count(n)
     err = _match_bit_exact(a, cnt, b, cnt, f"{n}x{n}")
-    b2 = b.clone()
-    for src, dst in ((5, 2021), (7, 31), (40, 32), (3000, 2015),
-                     (3000, 2016), (10, 650)):
-        b2[dst] = b2[src]
-    b2[100] = a[3]
-    b2[4100] = a[3]
-    b2[16000] = a[4]
-    b2[16001:] = a[:n - 16001]
-    err = max(err, _match_bit_exact(a, cnt, b2, _cuda_count(16001),
-                                    "counts (16384, 16001) with duplicates"))
+    b2, edges = edge_duplicates(a, b, 16001)
+    err = max(err, _match_bit_exact(
+        a, cnt, b2, _cuda_count(16001),
+        f"counts (16384, 16001), ties across B-tile edges "
+        f"{g['b_tile_rows']}, {2 * g['b_tile_rows']} and slice edges "
+        f"{edges}"))
     del b2
-    ms = median_ms(lambda: match_mod.match_2nn_tiles(a, cnt, b, cnt), REPS)
+    na = n - 37
+    check(na % g["a_tile_rows"] and (n - 100) % g["a_tile_rows"],
+          "ragged A case is a multiple of the A tile")
+    a_r = a[:na].contiguous()
+    err = max(err, _match_bit_exact(a_r, _cuda_count(n - 100), b, cnt,
+                                    f"A {na} rows, count_a {n - 100}"))
+    for cb in (0, 1):
+        err = max(err, _match_bit_exact(a_r, _cuda_count(n - 100), b,
+                                        _cuda_count(cb), f"count_b {cb}"))
+    ms = device_ms(lambda: match_mod.match_2nn_tiles(a, cnt, b, cnt))
     plain_ms = median_ms(lambda: match_mod.top2_plain(a, cnt, b, cnt),
                          PLAIN_REPS)
-    # Yardstick only, not library_ms: no single PyTorch call computes a 2-NN
-    # with earliest-index ties. The f32 product of the same shapes (TF32
-    # off) is the distances' dot products alone.
+    # Yardsticks only, not library_ms: no single PyTorch call computes a
+    # 2-NN with earliest-index ties. The f32 product of the same shapes
+    # (TF32 off) and the int8 product (descriptors - 128, int32 out) are
+    # the distances' dot products alone; the port calls neither.
     af, bf = a.float(), b.float()
-    mm_ms = median_ms(lambda: torch.mm(af, bf.T), PLAIN_REPS)
+    mm_ms = device_ms(lambda: torch.mm(af, bf.T), PLAIN_REPS)
     del af, bf
+    ai = (a.to(torch.int16) - 128).to(torch.int8)
+    bi = (b.to(torch.int16) - 128).to(torch.int8)
+    int_mm_ms = device_ms(lambda: torch._int_mm(ai, bi.T), PLAIN_REPS)
+    del ai, bi
     b_ms, b_by, dp4a_ms = match_bounds(n, n, n)
-    print(f"match_2nn {n}x{n} err={err} ms={ms:.4f} "
+    res = dict(shape=[n, n], max_abs_err=float(err), ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, mm_f32_ms=mm_ms, int_mm_ms=int_mm_ms,
+               dp4a_ceiling_ms=dp4a_ms, geometry=g)
+    if parent is not None:
+        old = parent.match(a, cnt, b, cnt)
+        new = match_mod.match_2nn_tiles(a, cnt, b, cnt)
+        check(all(torch.equal(x, y) for x, y in zip(old, new)),
+              "parent match_2nn differs from this one")
+        res["ms"], res["parent_ms"] = ab_ms(
+            lambda: match_mod.match_2nn_tiles(a, cnt, b, cnt),
+            lambda: parent.match(a, cnt, b, cnt))
+    print(f"match_2nn {n}x{n} err={err} ms={res['ms']:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-          f"library_ms=null", flush=True)
+          f"library_ms=null"
+          + (f" parent_ms={res['parent_ms']:.4f}" if parent is not None
+             else ""), flush=True)
     print(f"match_2nn yardsticks: torch.mm f32 {n}x128x{n} (TF32 off) "
-          f"{mm_ms:.4f} ms; dp4a ceiling {dp4a_ms:.4f} ms "
+          f"{mm_ms:.4f} ms; torch._int_mm int8 {n}x128x{n} {int_mm_ms:.4f} "
+          f"ms; SIMT dp4a ceiling {dp4a_ms:.4f} ms "
           f"({n * n * 32} dp4a at {DP4A_PER_CLOCK_PER_SM}/clock/SM x {SMS} "
           f"SMs at the max SM clock)", flush=True)
-    return dict(shape=[n, n], max_abs_err=float(err), ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, mm_f32_ms=mm_ms, dp4a_ceiling_ms=dp4a_ms)
+    return res
 
 
 # -- the slice ------------------------------------------------------------------
@@ -496,7 +713,7 @@ def shifted(img: np.ndarray, dx: int, dy: int) -> np.ndarray:
         np.pad(img, ((dy, 0), (dx, 0)), mode="edge")[:h, :w])
 
 
-def run_match(img: np.ndarray) -> dict:
+def run_match(img: np.ndarray, parent) -> dict:
     """The match path at the headline configuration, as
     ``examples/sift_match.py`` drives it."""
     cfg = vt.SiftConfig(use_input_upsampling=True,
@@ -549,8 +766,16 @@ def run_match(img: np.ndarray) -> dict:
     # The kernel alone on the frame's buffers: live counts (n_a, n_b) read
     # on the device, launched at the capacity.
     fa_t, fb_t = inst._buffers[0].features, inst._buffers[1].features
-    kernel_ms = median_ms(lambda: match_mod.match_2nn_tiles(
-        fa_t.descriptor, fa_t.count, fb_t.descriptor, fb_t.count), REPS)
+    def kernel():
+        return match_mod.match_2nn_tiles(fa_t.descriptor, fa_t.count,
+                                         fb_t.descriptor, fb_t.count)
+
+    parent_ms = None
+    if parent is None:
+        kernel_ms = device_ms(kernel)
+    else:
+        kernel_ms, parent_ms = ab_ms(kernel, lambda: parent.match(
+            fa_t.descriptor, fa_t.count, fb_t.descriptor, fb_t.count))
     k_bound_ms, k_bound_by, k_dp4a_ms = match_bounds(n_a, n_b, CAPACITY)
 
     def timed(download: bool) -> list:
@@ -571,6 +796,7 @@ def run_match(img: np.ndarray) -> dict:
     res = dict(launches=launches, features=[n_a, n_b], matches=n_match,
                kept=n_keep, translation_share=share,
                kernel_ms_at_counts=kernel_ms,
+               parent_kernel_ms_at_counts=parent_ms,
                kernel_bound_ms_at_counts=k_bound_ms,
                kernel_bound_by_at_counts=k_bound_by,
                dp4a_ceiling_ms_at_counts=k_dp4a_ms,
@@ -608,7 +834,10 @@ def profile_frames(img: np.ndarray, frames: int = 3) -> dict:
         rows.append((evt.key, us / 1e3 / frames, evt.count / frames))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    ours = {k: sum(r[1] for r in rows if r[0].startswith(k + "_kernel"))
+    # Kernel names as the profiler gives them: "blur_dog_kernel<13>(...)"
+    # with a "void " in front for a template, "frontend_kernel(...)".
+    ours = {k: sum(r[1] for r in rows
+                   if r[0].removeprefix("void ").startswith(k + "_kernel"))
             for k in WRAPPERS}
     res = dict(frames=frames, wall_ms_per_frame=wall_ms / frames,
                device_busy_ms_per_frame=busy if rows else None,
@@ -623,6 +852,11 @@ def profile_frames(img: np.ndarray, frames: int = 3) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="also time the blur and matcher kernels of the "
+                         "checkout at DIR, in turns with these")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -678,18 +912,19 @@ def main() -> int:
                dog_threshold=cfg.dog_threshold,
                seed=upsample2x_linear(x).contiguous())
 
+    parent = Parent(args.parent) if args.parent else None
     rows = {
-        "blur_dog": check_blur(cap),
+        "blur_dog": check_blur(cap, parent),
         "frontend": check_frontend(cap),
         "orientation_hist": check_orientation_hist(cap),
         "descriptor": check_descriptor(cap),
     }
     del cap
     torch.cuda.empty_cache()
-    rows["match_2nn"] = check_match()
+    rows["match_2nn"] = check_match(parent)
     torch.cuda.empty_cache()
     res = run_slice(img)
-    res_match = run_match(img)
+    res_match = run_match(img, parent)
     profile_frames(img)
 
     kernels = []
@@ -702,6 +937,16 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    frame = {name: dict(launches=r["frame_launches"], ms=r["frame_ms"],
+                        bound_ms=r["frame_bound_ms"])
+             for name, r in rows.items() if name != "match_2nn"}
+    frame["match_2nn"] = dict(
+        launches=res_match["launches"]["match_2nn"],
+        ms=res_match["launches"]["match_2nn"]
+        * res_match["kernel_ms_at_counts"],
+        bound_ms=res_match["launches"]["match_2nn"]
+        * res_match["kernel_bound_ms_at_counts"])
+    print("per_frame " + json.dumps(frame), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

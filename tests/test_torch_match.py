@@ -7,6 +7,9 @@ in interpret mode. Every gate is bit-exact on the live rows: indices and
 float32 distances.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -196,3 +199,79 @@ def test_lowe_and_cross_check_match_jax():
     np.testing.assert_array_equal(
         cc, np.asarray(jmatch.cross_check_mask(j_ab, j_ba)))
     assert cc.all()
+
+
+def test_kernel_geometry_mirrors_the_cuda_defines():
+    """ops/match.KERNEL_GEOMETRY is a copy of csrc/match_2nn.cu's tiling;
+    the tie tests are placed from it, so it must not drift."""
+    src = (Path(match.__file__).resolve().parent.parent / "csrc"
+           / "match_2nn.cu").read_text()
+    defines = dict((k, int(v)) for k, v in re.findall(
+        r"^#define\s+(A_TILE|B_TILE|SLICES)\s+(\d+)", src, re.M))
+    assert defines == {"A_TILE": match.KERNEL_GEOMETRY["a_tile_rows"],
+                       "B_TILE": match.KERNEL_GEOMETRY["b_tile_rows"],
+                       "SLICES": match.KERNEL_GEOMETRY["slices"]}
+
+
+@pytest.mark.parametrize("count_b", [0, 1, 63, 64, 65, 1001, 16001, 16384])
+def test_kernel_slices_cover_the_live_rows(count_b):
+    g = match.KERNEL_GEOMETRY
+    sl = match.kernel_slices(count_b)
+    assert len(sl) == g["slices"]
+    assert sl[0][0] == 0 and sl[-1][1] == count_b
+    for (b0, e0), (b1, _) in zip(sl, sl[1:]):
+        assert e0 == b1 and b0 <= e0
+        # Every slice but the one holding count_b is whole B tiles.
+        assert e0 == count_b or (e0 - b0) % g["b_tile_rows"] == 0
+
+
+def _edge_case():
+    """A at 300 rows with count_a = 290 (neither a multiple of the A tile),
+    B at 1100 rows with count_b = 1001, and ties on the kernel's edges at
+    that count: B rows duplicated across B-tile and slice edges, copies of
+    one A row on both sides of a slice edge, and copies of A rows past
+    count_b (they would win if they were read)."""
+    g = match.KERNEL_GEOMETRY
+    rng = np.random.default_rng(15)
+    a, b = _rand_desc(rng, 300), _rand_desc(rng, 1100)
+    ca, cb = 290, 1001
+    assert ca % g["a_tile_rows"] and len(a) % g["a_tile_rows"]
+    slice_edges = [s for s, e in match.kernel_slices(cb)[1:] if s < cb]
+    tile = g["b_tile_rows"]
+    for edge in [tile, 2 * tile] + slice_edges:
+        b[edge] = b[edge - 1]
+    e0, e1 = slice_edges[0], slice_edges[-1]
+    b[e0 - 3] = a[5]
+    b[e0 + 2] = a[5]
+    b[e1 + 1] = a[6]
+    b[e1 - 1] = a[6]
+    b[cb:] = a[:len(b) - cb]
+    return a, ca, b, cb, (e0, e1)
+
+
+def test_top2_plain_on_kernel_edges_matches_jax_and_golden():
+    a, ca, b, cb, (e0, e1) = _edge_case()
+    m = match.match_2nn(torch.from_numpy(a), ca, torch.from_numpy(b), cb)
+    mj = jmatch.match_2nn(jnp.asarray(a), jnp.asarray(ca), jnp.asarray(b),
+                          jnp.asarray(cb))
+    live = np.arange(len(a)) < ca
+    _assert_same(m, mj, live)
+    ref = gold.match_2nn_np(a[:ca], b[:cb])
+    np.testing.assert_array_equal(m.idx_b1.numpy()[:ca], ref[:, 0])
+    np.testing.assert_array_equal(m.idx_b2.numpy()[:ca], ref[:, 1])
+    assert (int(m.idx_b1[5]), int(m.idx_b2[5])) == (e0 - 3, e0 + 2)
+    assert (int(m.idx_b1[6]), int(m.idx_b2[6])) == (e1 - 1, e1 + 1)
+    assert np.isinf(m.dist_a_b1.numpy()[~live]).all()
+
+
+def test_match_2nn_fused_on_kernel_edges_matches_jax_interpret(jax_interpret):
+    a, ca, b, cb, _ = _edge_case()
+    m = match.match_2nn_fused(torch.from_numpy(a), torch.tensor(ca),
+                              torch.from_numpy(b),
+                              torch.tensor(cb, dtype=torch.int32))
+    mj = jmatch.match_2nn_fused(jnp.asarray(a), jnp.asarray(ca),
+                                jnp.asarray(b), jnp.asarray(cb))
+    live = np.arange(len(a)) < ca
+    _assert_same(m, mj, live)
+    raw = match.top2_plain(torch.from_numpy(a), ca, torch.from_numpy(b), cb)
+    assert (raw[0][~torch.from_numpy(live)] == match.D2_INVALID).all()

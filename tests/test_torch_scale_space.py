@@ -53,6 +53,22 @@ def test_blur_separable_matches_jax(shape, sigma):
     np.testing.assert_allclose(dog.numpy(), ref - x, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape,sigma", [((960, 1280), 3.2), ((41, 75), 3.2),
+                                         ((41, 75), 5.0), ((7, 5), 3.2),
+                                         ((5, 7), 3.2), ((5, 7), 5.0)])
+def test_blur_ragged_and_small_layers_match_jax(shape, sigma):
+    """The ragged and smaller-than-the-half-kernel layers (n < k) on which
+    chip_smoke holds the kernel's border path against this plain version."""
+    rng = np.random.default_rng(3)
+    x = rng.random(shape).astype(np.float32)
+    taps = jgauss.half_kernel(sigma)  # 14 taps at 3.2, 20 at 5.0
+    ref = np.asarray(jax.jit(lambda v: jss.blur_separable(v, taps))(
+        jnp.asarray(x)))
+    y, dog = blur.blur_dog_plain(torch.from_numpy(x), taps)
+    np.testing.assert_allclose(y.numpy(), ref, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(dog.numpy(), ref - x, rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("n,k", [(10, 3), (5, 13), (3, 7)])
 def test_symmetric_index_matches_numpy_pad(n, k):
     a = np.arange(n)

@@ -20,6 +20,11 @@ import torch
 
 from . import cuda_lib
 
+# vks_blur_dog(x, y, dog, taps, ntaps, H, W, stream)
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p)
+
 
 def _symmetric_index(n: int, k: int, device) -> torch.Tensor:
     """Source indices of positions -k .. n+k-1 under symmetric padding
@@ -93,10 +98,7 @@ def blur_dog(x: torch.Tensor, taps: Sequence[float], with_dog: bool = True,
             if t.shape != x.shape or t.device != x.device:
                 raise ValueError(f"{name}: expected {tuple(x.shape)} on {x.device}")
     t_np = np.ascontiguousarray(taps, np.float32)
-    fn = cuda_lib.entry("blur_dog", "vks_blur_dog", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p])
+    fn = cuda_lib.entry("blur_dog", "vks_blur_dog", _ARGTYPES)
     rc = fn(x.data_ptr(), y.data_ptr(), 0 if dog is None else dog.data_ptr(),
             t_np.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(t_np),
             h, w, cuda_lib.stream_of(x))

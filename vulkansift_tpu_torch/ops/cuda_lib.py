@@ -30,7 +30,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -47,6 +47,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _local = threading.local()  # .force_plain, set inside force_plain()
 
 
@@ -118,13 +119,17 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def entry(source: str, symbol: str, argtypes: list):
+def entry(source: str, symbol: str, argtypes: Sequence):
     """The C entry point ``symbol`` of a kernel source's library, with its
     argument types set (pointers and the stream as ``c_void_p``) and an
-    ``int`` (cudaError_t) result."""
-    fn = getattr(library(source), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    ``int`` (cudaError_t) result. Resolved once per (source, symbol) and
+    kept, since the wrappers call this on every launch."""
+    fn = _entries.get((source, symbol))
+    if fn is None:
+        fn = getattr(library(source), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[(source, symbol)] = fn
     return fn
 
 

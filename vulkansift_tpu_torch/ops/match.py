@@ -37,6 +37,18 @@ from . import cuda_lib
 D2_INVALID = (1 << 23) - 1   # raw "no neighbour" distance (with index 0)
 _INF = float("inf")
 
+# The kernel's tiling, mirrored from the #defines A_TILE, B_TILE and SLICES
+# of csrc/match_2nn.cu (change both together; tests/test_torch_match.py
+# checks that they agree). A block owns a_tile_rows A rows; the live B rows
+# are cut into `slices` contiguous slices, one per block of a cluster, each
+# streamed in b_tile_rows-row stages. The tie tests sit on these edges.
+KERNEL_GEOMETRY = {"a_tile_rows": 128, "b_tile_rows": 64, "slices": 8}
+
+# vks_match_2nn(desc_a, count_a, desc_b, count_b, d1, i1, d2, i2, na, nb,
+#               stream)
+_ARGTYPES = ((ctypes.c_void_p,) * 8
+             + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+
 Count = Union[int, torch.Tensor]
 Top2 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -66,6 +78,17 @@ def merge_top2(r: Top2, t: Top2) -> Top2:
     nd2 = torch.where(take_loser, loser_d, win2_d)
     ni2 = torch.where(take_loser, loser_i, win2_i)
     return nd1, ni1, nd2, ni2
+
+
+def kernel_slices(count_b: int) -> Tuple[Tuple[int, int], ...]:
+    """The [begin, end) B rows that each slice of the kernel scans at a
+    live count ``count_b``: a slice is ceil(count_b / slices) rows rounded
+    up to whole B tiles, as the kernel computes it."""
+    g = KERNEL_GEOMETRY
+    per = -(-count_b // g["slices"])
+    chunk = -(-per // g["b_tile_rows"]) * g["b_tile_rows"]
+    return tuple((min(s * chunk, count_b), min(s * chunk + chunk, count_b))
+                 for s in range(g["slices"]))
 
 
 def _check_descriptors(desc: torch.Tensor, name: str) -> None:
@@ -149,9 +172,7 @@ def match_2nn_tiles(desc_a: torch.Tensor, count_a: Count,
     na, nb = desc_a.shape[0], desc_b.shape[0]
     out = tuple(torch.empty(na, dtype=torch.int32, device=dev)
                 for _ in range(4))
-    fn = cuda_lib.entry("match_2nn", "vks_match_2nn",
-                        [ctypes.c_void_p] * 8
-                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn = cuda_lib.entry("match_2nn", "vks_match_2nn", _ARGTYPES)
     rc = fn(desc_a.data_ptr(), cnt_a.data_ptr(), desc_b.data_ptr(),
             cnt_b.data_ptr(), *(o.data_ptr() for o in out), na, nb,
             cuda_lib.stream_of(desc_a))
