@@ -14,12 +14,17 @@
    the main path's real inputs and holds each kernel against its plain
    PyTorch version on the card: the blur bit for bit on all 36 layers of
    the frame and on ragged and tiny layers (n < k) with every tap count,
-   the frontend on all 7 octaves, the 2-NN matcher bit for bit at
+   the frontend bit for bit on all 7 octaves and on ragged, tiny,
+   unaligned and 17-layer stacks, the descriptor in UBC and VLFeat order
+   (u8 bar, rows past the count zero, two launches equal byte for byte),
+   the 2-NN matcher bit for bit at
    16384x16384, with ties on its tile and slice edges (placed from
    ``ops/match.KERNEL_GEOMETRY``), with a ragged A and with count_b 0
    and 1. Each kernel is timed on the device (CUDA events around calls
    queued behind a device-side sleep) and summed over its launches of a
-   frame at their own shapes.
+   frame at their own shapes. Then one ``detect_features`` at
+   ``nb_scales_per_octave=15`` on a 640x480 frame against the all-plain
+   pipeline.
 4. Drives the detect path: ``SiftInstance.detect_features`` at 1536x1024
    (upsampling, capacity 32768) into buffers 0 and 1, with every launch
    counter set to 0 just before and read just after, and checks the result
@@ -38,9 +43,10 @@
    torch.profiler breakdown of three frames (device busy time, idle share,
    the kernels that take the most device time).
 
-``--parent DIR`` also builds the blur and matcher sources of the checkout
-at DIR (for example the parent commit, unpacked with ``git archive`` into
-the git-ignored ``build/``) and times them in turns with these.
+``--parent DIR`` also builds the blur, frontend, descriptor and matcher
+sources of the checkout at DIR (for example the parent commit, unpacked
+with ``git archive`` into the git-ignored ``build/``), checks that they
+agree with these and times them in turns with these.
 
 Any failure raises, so the script exits non-zero and prints no result
 line; it also exits non-zero when no CUDA card is available.
@@ -173,24 +179,32 @@ def ab_ms(new, old, reps: int = REPS):
 
 
 class Parent:
-    """The blur and matcher kernels of another checkout (``--parent DIR``,
-    for example ``git archive`` of the parent commit unpacked into the
-    git-ignored ``build/``), built with the port's nvcc flags and launched
-    through the same C entry points, so that the two designs are timed in
-    one call on one card."""
+    """The blur, frontend, descriptor and matcher kernels of another
+    checkout (``--parent DIR``, for example ``git archive`` of the parent
+    commit unpacked into the git-ignored ``build/``), built with the port's
+    nvcc flags and launched through their C entry points, so that the two
+    designs are timed in one call on one card. A descriptor entry point
+    without the work-counter argument (the design before the persistent
+    grid) is called without it."""
 
     def __init__(self, root: str):
         self.fns = {}
+        csrc = Path(root) / "vulkansift_tpu_torch" / "csrc"
+        self.desc_work = "void* work" in (csrc / "descriptor.cu").read_text()
+        desc_argtypes = ([ctypes.c_void_p] * (6 if self.desc_work else 5)
+                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         procs = []
         for name, sym, argtypes in (
                 ("blur_dog", "vks_blur_dog", blur._ARGTYPES),
+                ("frontend", "vks_frontend", frontend._ARGTYPES),
+                ("descriptor", "vks_descriptor", desc_argtypes),
                 ("match_2nn", "vks_match_2nn", match_mod._ARGTYPES)):
-            src = Path(root) / "vulkansift_tpu_torch" / "csrc" / f"{name}.cu"
+            src = csrc / f"{name}.cu"
             out = cuda_lib.BUILD_DIR / f"parent_{name}.so"
             cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
             procs.append((subprocess.Popen(
-                [cuda_lib.nvcc_path(), *cuda_lib.NVCC_FLAGS, "-o", str(out),
-                 str(src)]), name, sym, argtypes, out))
+                [cuda_lib.nvcc_path(), *cuda_lib.nvcc_flags(name), "-o",
+                 str(out), str(src)]), name, sym, argtypes, out))
         for proc, name, sym, argtypes, out in procs:
             check(proc.wait() == 0, f"{root}: {name}.cu did not build")
             fn = getattr(ctypes.CDLL(str(out)), sym)
@@ -202,21 +216,42 @@ class Parent:
         y = torch.empty_like(x)
         dog = torch.empty_like(x) if with_dog else None
         t = np.ascontiguousarray(taps, np.float32)
-        rc = self.fns["blur_dog"](
-            x.data_ptr(), y.data_ptr(), 0 if dog is None else dog.data_ptr(),
+        cuda_lib.launch(
+            self.fns["blur_dog"], x, "parent blur_dog", x.data_ptr(),
+            y.data_ptr(), 0 if dog is None else dog.data_ptr(),
             t.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(t),
-            x.shape[0], x.shape[1], cuda_lib.stream_of(x))
-        cuda_lib.check(rc, "parent blur_dog")
+            x.shape[0], x.shape[1])
         return y, dog
+
+    def frontend(self, dog, thr: float):
+        ns, h, w = dog.shape
+        code = torch.empty((ns - 2, h - 2, w - 2), dtype=torch.uint8,
+                           device=dog.device)
+        counts = torch.zeros((ns - 2, h - 2), dtype=torch.int32,
+                             device=dog.device)
+        cuda_lib.launch(self.fns["frontend"], dog, "parent frontend",
+                        dog.data_ptr(), code.data_ptr(), counts.data_ptr(),
+                        ns, h, w, float(np.float32(thr * 0.8)))
+        return code, counts
+
+    def descriptor(self, flat, recs, count, radius: int, vlfeat: bool):
+        cap = recs.rec.shape[0]
+        buf = torch.zeros(cap * 128 + 1, dtype=torch.float32,
+                          device=flat.device)
+        work = (buf[cap * 128:].data_ptr(),) if self.desc_work else ()
+        cuda_lib.launch(self.fns["descriptor"], flat, "parent descriptor",
+                        flat.data_ptr(), recs.base.data_ptr(),
+                        recs.rec.data_ptr(), count.data_ptr(),
+                        buf.data_ptr(), *work, cap, radius, int(vlfeat))
+        return buf[:cap * 128].view(cap, 128)
 
     def match(self, a, ca, b, cb):
         out = tuple(torch.empty(a.shape[0], dtype=torch.int32,
                                 device=a.device) for _ in range(4))
-        rc = self.fns["match_2nn"](
-            a.data_ptr(), ca.data_ptr(), b.data_ptr(), cb.data_ptr(),
-            *(o.data_ptr() for o in out), a.shape[0], b.shape[0],
-            cuda_lib.stream_of(a))
-        cuda_lib.check(rc, "parent match_2nn")
+        cuda_lib.launch(
+            self.fns["match_2nn"], a, "parent match_2nn", a.data_ptr(),
+            ca.data_ptr(), b.data_ptr(), cb.data_ptr(),
+            *(o.data_ptr() for o in out), a.shape[0], b.shape[0])
         return out
 
 
@@ -357,37 +392,82 @@ def frontend_bound(dog: torch.Tensor):
                  147 * cells)
 
 
-def check_frontend(cap: dict) -> dict:
+def frontend_exact(dog: torch.Tensor, thr: float, what: str) -> int:
+    """Kernel vs plain version on one stack: codes and row counts, bit for
+    bit. Returns the number of candidates."""
+    code_k, cnt_k = frontend.frontend(dog, thr)
+    code_p, cnt_p = extract.dense_frontend(dog, thr)
+    check(torch.equal(code_k, code_p) and torch.equal(cnt_k, cnt_p),
+          f"frontend {what} not bit-exact: codes differ at "
+          f"{int((code_k != code_p).sum())} cells, counts at "
+          f"{int((cnt_k != cnt_p).sum())} rows")
+    return int(cnt_k.sum())
+
+
+# Ragged, tiny and deep DoG stacks (layers, H, W) for the frontend gate:
+# W-2 not a multiple of the 64-cell tile nor of 4, the smallest stack,
+# the frame's octave-6 shape, 17 layers (nb_scales_per_octave 15), and one
+# 17-layer stack as wide as octave 0.
+FRONTEND_CASES = ((5, 41, 75), (3, 3, 3), (4, 19, 70), (5, 32, 48),
+                  (6, 67, 131), (17, 130, 203), (17, 256, 3072))
+
+
+def check_frontend(cap: dict, parent) -> dict:
     """Bit-exact on every octave's DoG stack (the 7 launches of a frame),
-    each timed at its own shape and summed per frame; the table row is
-    octave 0 (5x2048x3072)."""
+    each timed at its own shape and summed per frame; on the ragged, tiny
+    and 17-layer stacks of FRONTEND_CASES (random normal DoG values, x 0.05,
+    so that candidates are dense) and on one stack whose pointer is not
+    16-byte aligned. The table row is octave 0 (5x2048x3072)."""
     thr = cap["dog_threshold"]
     frame_ms = frame_bound = 0.0
     for o, dog in enumerate(cap["dogs"]):
-        code_k, cnt_k = frontend.frontend(dog, thr)
-        code_p, cnt_p = extract.dense_frontend(dog, thr)
-        err = max((code_k.int() - code_p.int()).abs().max().item(),
-                  (cnt_k - cnt_p).abs().max().item())
-        check(err == 0, f"frontend octave {o} not bit-exact: max diff {err}")
+        n = frontend_exact(dog, thr, f"octave {o}")
         ms = device_ms(lambda: frontend.frontend(dog, thr))
         b_ms, b_by = frontend_bound(dog)
         frame_ms += ms
         frame_bound += b_ms
         print(f"frontend octave {o} {tuple(dog.shape)} "
-              f"candidates={int(cnt_k.sum())} bit-exact ms={ms:.4f} "
+              f"candidates={n} bit-exact ms={ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
         if o == 0:
             row = dict(shape=list(dog.shape), max_abs_err=0.0, ms=ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for shape in FRONTEND_CASES:
+        dog = torch.randn(shape, generator=gen, device="cuda") * 0.05
+        n = frontend_exact(dog, thr, f"{shape}")
+        print(f"frontend {shape} candidates={n} bit-exact", flush=True)
+    shape = FRONTEND_CASES[-1]
+    store = torch.empty(math.prod(shape) + 1, device="cuda")
+    dog = store[1:].view(shape)
+    dog.copy_(torch.randn(shape, generator=gen, device="cuda") * 0.05)
+    check(dog.data_ptr() % 16 != 0, "unaligned case is aligned")
+    n = frontend_exact(dog, thr, f"{shape} unaligned")
+    print(f"frontend {shape} at a pointer 4 bytes past 16-byte alignment "
+          f"candidates={n} bit-exact", flush=True)
+    del store, dog
+
     dog = cap["dogs"][0]
     row["plain_ms"] = median_ms(lambda: extract.dense_frontend(dog, thr),
                                 PLAIN_REPS)
     row.update(frame_launches=len(cap["dogs"]), frame_ms=frame_ms,
                frame_bound_ms=frame_bound)
+    if parent is not None:
+        for o, d in enumerate(cap["dogs"]):
+            check(all(torch.equal(a, b) for a, b in zip(
+                parent.frontend(d, thr), frontend.frontend(d, thr))),
+                  f"parent frontend differs from this one at octave {o}")
+        row["ms"], row["parent_ms"] = ab_ms(
+            lambda: frontend.frontend(dog, thr),
+            lambda: parent.frontend(dog, thr))
+        row["parent_frame_ms"] = sum(
+            device_ms(lambda: parent.frontend(d, thr)) for d in cap["dogs"])
     print(f"frontend {tuple(dog.shape)} ms={row['ms']:.4f} "
           f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
           f"({row['bound_by']}); per frame: {len(cap['dogs'])} launches, "
-          f"sum ms={frame_ms:.4f} sum bound_ms={frame_bound:.4f}",
+          f"sum ms={frame_ms:.4f} sum bound_ms={frame_bound:.4f}"
+          + (f" parent_ms={row['parent_ms']:.4f} parent_frame_ms="
+             f"{row['parent_frame_ms']:.4f}" if parent is not None else ""),
           flush=True)
     return row
 
@@ -450,21 +530,42 @@ def check_orientation_hist(cap: dict) -> dict:
                 frame_launches=1, frame_ms=ms, frame_bound_ms=b_ms)
 
 
-def check_descriptor(cap: dict) -> dict:
-    flat, recs, cnt = cap["flat"], cap["desc_records"], cap["desc_count"]
-    r, vl = cap["desc_radius"], cap["use_vlfeat"]
+def descriptor_gate(flat, recs, cnt, r: int, vl: bool):
+    """Kernel vs plain version on the frame's pair records in one bin
+    order: at least 99.5 % of u8 bins within +-1 and none off by more than
+    8 (the JAX package's bar), rows past the count zero, and two launches
+    equal byte for byte. Returns (raw max abs error, share within 1, max
+    u8 difference)."""
+    fmt = "VLFeat" if vl else "UBC"
     d_k = backhalf.descriptor(flat, recs, cnt, desc_radius=r, use_vlfeat=vl)
+    d_2 = backhalf.descriptor(flat, recs, cnt, desc_radius=r, use_vlfeat=vl)
+    check(torch.equal(d_k.view(torch.int32), d_2.view(torch.int32)),
+          f"descriptor {fmt}: two launches differ")
     d_p = desc_mod.raw_descriptors(flat, recs, cnt, desc_radius=r,
                                    use_vlfeat=vl)
     err = (d_k - d_p).abs().max().item()
     q_k = desc_mod.normalize_descriptor(d_k).int()
     q_p = desc_mod.normalize_descriptor(d_p).int()
     n = int(cnt)
+    check(not d_k[n:].any(), f"descriptor {fmt}: a row past the count is "
+          "not zero")
     qd = (q_k[:n] - q_p[:n]).abs()
     within = (qd <= 1).float().mean().item() if n else 1.0
     qmax = qd.max().item() if n else 0
     check(within >= 0.995 and qmax <= 8,
-          f"descriptor u8 within1={within} max={qmax}")
+          f"descriptor {fmt} u8 within1={within} max={qmax}")
+    print(f"descriptor {fmt} pairs={n} raw_err={err:.3g} "
+          f"u8_within1={within:.6f} u8_max={qmax}; two launches equal; rows "
+          f"past the count zero", flush=True)
+    return err, within, qmax
+
+
+def check_descriptor(cap: dict, parent) -> dict:
+    flat, recs, cnt = cap["flat"], cap["desc_records"], cap["desc_count"]
+    r, vl = cap["desc_radius"], cap["use_vlfeat"]
+    descriptor_gate(flat, recs, cnt, r, not vl)
+    err, within, qmax = descriptor_gate(flat, recs, cnt, r, vl)
+    n = int(cnt)
     ms = device_ms(lambda: backhalf.descriptor(
         flat, recs, cnt, desc_radius=r, use_vlfeat=vl))
     plain_ms = median_ms(lambda: desc_mod.raw_descriptors(
@@ -476,15 +577,31 @@ def check_descriptor(cap: dict) -> dict:
         lambda s: torch.floor(((math.sqrt(2.0) * (3.0 * s)) * 5.0) * 0.5
                               + 0.5), r, 75, 128)
     b_ms, b_by = bound(nbytes, ops)
+    res = dict(pairs=n, max_abs_err=err, u8_within1=within, u8_max=qmax,
+               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, frame_launches=1, frame_ms=ms,
+               frame_bound_ms=b_ms)
+    if parent is not None:
+        old = parent.descriptor(flat, recs, cnt, r, vl)
+        new = backhalf.descriptor(flat, recs, cnt, desc_radius=r,
+                                  use_vlfeat=vl)
+        qd = (desc_mod.normalize_descriptor(old).int()
+              - desc_mod.normalize_descriptor(new).int()).abs()[:n]
+        check(n == 0 or ((qd <= 1).float().mean().item() >= 0.995
+                         and qd.max().item() <= 8),
+              "parent descriptor disagrees with this one")
+        res["ms"], res["parent_ms"] = ab_ms(
+            lambda: backhalf.descriptor(flat, recs, cnt, desc_radius=r,
+                                        use_vlfeat=vl),
+            lambda: parent.descriptor(flat, recs, cnt, r, vl))
+        res["frame_ms"] = res["ms"]
     print(f"descriptor pairs={n} cells={px} bytes={nbytes} "
           f"raw_err={err:.3g} "
-          f"u8_within1={within:.6f} u8_max={qmax} ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})",
-          flush=True)
-    return dict(pairs=n, max_abs_err=err, u8_within1=within, u8_max=qmax,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, frame_launches=1, frame_ms=ms,
-                frame_bound_ms=b_ms)
+          f"u8_within1={within:.6f} u8_max={qmax} ms={res['ms']:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})"
+          + (f" parent_ms={res['parent_ms']:.4f}" if parent is not None
+             else ""), flush=True)
+    return res
 
 
 def _cuda_count(n: int) -> torch.Tensor:
@@ -705,6 +822,31 @@ def run_slice(img: np.ndarray) -> dict:
     return res
 
 
+def check_many_scales() -> dict:
+    """``detect_features`` at ``nb_scales_per_octave=15`` (17 DoG layers an
+    octave) on a 640x480 frame against the same pipeline with every wrapper
+    forced to its plain version, with the whole-detect limits."""
+    w, h = 640, 480
+    img = bench_image(h, w, seed=3)
+    cfg = vt.SiftConfig(nb_scales_per_octave=15, use_input_upsampling=True,
+                        max_nb_sift_per_buffer=CAPACITY)
+    inst = vt.SiftInstance(cfg, device="cuda")
+    before = {k: WRAPPERS[k].launches for k in DETECT_KERNELS}
+    inst.detect_features(img, 0)
+    feats = inst.download_features(0)
+    for k in DETECT_KERNELS:
+        check(WRAPPERS[k].launches > before[k],
+              f"kernel {k} was not launched at 15 scales per octave")
+    check(len(feats) > 0 and inst.get_lost_features_number(0) == 0,
+          "15 scales per octave: no features, or features lost")
+    with cuda_lib.force_plain():
+        out_p = make_detect_fn(cfg, w, h, device="cuda")(img)
+        plain = vt.features_to_numpy(out_p.features)
+    cmp = compare_with_plain(feats, plain)
+    print("15 scales per octave, 640x480: " + json.dumps(cmp), flush=True)
+    return cmp
+
+
 def shifted(img: np.ndarray, dx: int, dy: int) -> np.ndarray:
     """``img`` moved ``dx`` px right and ``dy`` px down, edge-padded and
     cropped to its size: a feature at (x, y) moves to (x + dx, y + dy)."""
@@ -854,8 +996,9 @@ def profile_frames(img: np.ndarray, frames: int = 3) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="also time the blur and matcher kernels of the "
-                         "checkout at DIR, in turns with these")
+                    help="also time the blur, frontend, descriptor and "
+                         "matcher kernels of the checkout at DIR, in turns "
+                         "with these")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -915,13 +1058,15 @@ def main() -> int:
     parent = Parent(args.parent) if args.parent else None
     rows = {
         "blur_dog": check_blur(cap, parent),
-        "frontend": check_frontend(cap),
+        "frontend": check_frontend(cap, parent),
         "orientation_hist": check_orientation_hist(cap),
-        "descriptor": check_descriptor(cap),
+        "descriptor": check_descriptor(cap, parent),
     }
     del cap
     torch.cuda.empty_cache()
     rows["match_2nn"] = check_match(parent)
+    torch.cuda.empty_cache()
+    check_many_scales()
     torch.cuda.empty_cache()
     res = run_slice(img)
     res_match = run_match(img, parent)

@@ -99,6 +99,21 @@ def test_frontend_matches_pallas_kernel_interpret(monkeypatch):
                                   np.asarray(ref_c.code0)[:n])
 
 
+def test_exact_kernels_build_without_fused_multiply_add(monkeypatch):
+    """The kernels held bit for bit against their plain versions (blur,
+    frontend walk code) and those kept as measured build with
+    --fmad=false; only the descriptor, held to a u8 tolerance, may fuse.
+    The flags are part of each library's cache key."""
+    from vulkansift_tpu_torch.ops import cuda_lib
+    for name in cuda_lib.SOURCES:
+        flags = cuda_lib.nvcc_flags(name)
+        assert "arch=compute_90a,code=sm_90a" in flags
+        assert ("--fmad=false" in flags) == (name != "descriptor"), name
+    exact = cuda_lib._lib_path("frontend")
+    monkeypatch.setattr(cuda_lib, "NO_FMAD", ())
+    assert cuda_lib._lib_path("frontend") != exact
+
+
 def test_compaction_capacity_clamp():
     dog = _rand_dog((5, 64, 128), seed=1)
     code, counts = tfront.frontend(torch.from_numpy(dog), 0.001)

@@ -20,8 +20,13 @@ import pytest
 from conftest import make_blob_image
 import vulkansift_tpu as jvs
 from vulkansift_tpu.config import DescriptorFormat, SiftConfig
+from vulkansift_tpu.ops import extract as jex
+from vulkansift_tpu.ops import scale_space as jss
 from vulkansift_tpu.pipeline import make_detect_fn as jax_make_detect_fn
+import torch
 import vulkansift_tpu_torch as vt
+from vulkansift_tpu_torch.ops import extract as tex
+from vulkansift_tpu_torch.ops import frontend as tfront
 from vulkansift_tpu_torch.errors import InvalidConfigError, InvalidInputError
 from vulkansift_tpu_torch.pipeline import make_detect_fn
 
@@ -82,14 +87,46 @@ def _compare(img, cfg):
     return ta
 
 
+def _frontend_matches_jax(img, cfg):
+    """Every octave's DoG stack (from the JAX pyramid) through both
+    frontends: codes and candidates bit-exact."""
+    h, w = img.shape
+    shapes = tuple((oh, ow) for ow, oh in cfg.octave_resolutions(w, h))
+    x = jnp.asarray(img).astype(jnp.float32) * (1.0 / 255.0)
+    _, dogs = jss.build_pyramid_jit(x, cfg, shapes)
+    thr = cfg.dog_threshold
+    for dog in dogs:
+        dog = np.array(dog)
+        assert dog.shape[0] == cfg.nb_scales_per_octave + 2
+        ref_c, ref_code = jax.jit(jex.dense_frontend, static_argnums=(1, 2))(
+            jnp.asarray(dog), thr, dog.size)
+        code, counts = tfront.frontend(torch.from_numpy(dog), thr)
+        np.testing.assert_array_equal(code.numpy().astype(np.int32) % 128,
+                                      np.asarray(ref_code).astype(np.int32))
+        n = int(ref_c.count)
+        assert int(counts.sum()) == int((code.numpy() >= 128).sum()) == n
+        c = tex.compact_candidates(code, counts, dog.size)
+        for a, b in ((c.s, ref_c.s), (c.y, ref_c.y), (c.x, ref_c.x)):
+            np.testing.assert_array_equal(a[:n].numpy(), np.asarray(b)[:n])
+
+
 @pytest.mark.parametrize("case", ["no_upsampling_ubc",
-                                  "upsampling_vlfeat_2_octaves"])
+                                  "upsampling_vlfeat_2_octaves",
+                                  "15_scales_per_octave"])
 def test_detect_matches_jax(case):
     if case == "no_upsampling_ubc":
         img = make_blob_image(96, 128, seed=5, nb_blobs=14)
         cfg = SiftConfig(use_input_upsampling=False,
                          max_nb_sift_per_buffer=512,
                          input_image_max_size=128 * 96)
+    elif case == "15_scales_per_octave":
+        # 17 DoG layers an octave, more than the frontend kernel's old
+        # limit of 16.
+        img = make_blob_image(64, 96, seed=11, nb_blobs=12)
+        cfg = SiftConfig(use_input_upsampling=False, nb_scales_per_octave=15,
+                         max_nb_sift_per_buffer=1024,
+                         input_image_max_size=96 * 64)
+        _frontend_matches_jax(img, cfg)
     else:
         img = make_blob_image(128, 160, seed=7, nb_blobs=16)
         cfg = SiftConfig(use_input_upsampling=True, nb_octaves=2,

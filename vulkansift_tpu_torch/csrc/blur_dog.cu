@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #define VKS_MAX_K 19   // half-kernel taps <= MAX_GAUSSIAN_KERNEL_SIZE = 20
 #define TILE_W 128     // output columns per block
 #define TILE_H 32      // output rows per block
@@ -214,18 +216,21 @@ static int launch(const float* x, float* y, float* dog, const Taps& taps,
                   int H, int W, cudaStream_t stream) {
   using G = Geometry<K>;
   // Above 48 KB a block's dynamic shared memory must be allowed per kernel
-  // and per device; remember the devices already set.
-  static unsigned long long ready = 0;
+  // and per device (the caller makes the tensor's device current); remember
+  // the devices already set. The mask is atomic, since callers on several
+  // threads may launch at once; two of them may both set the attribute,
+  // which is harmless.
+  static std::atomic<unsigned long long> ready{0};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   const unsigned long long bit = 1ull << (dev & 63);
-  if (!(ready & bit)) {
+  if (!(ready.load(std::memory_order_acquire) & bit)) {
     e = cudaFuncSetAttribute(blur_dog_kernel<K>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              G::SMEM);
     if (e != cudaSuccess) return (int)e;
-    ready |= bit;
+    ready.fetch_or(bit, std::memory_order_release);
   }
   const int aligned = ((uintptr_t)x % 16 == 0) && (W % 4 == 0);
   dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H);

@@ -171,7 +171,9 @@ class SiftInstance:
                     return_pyramid=self.config.retain_pyramid,
                     device=self.device)
             out = self._detect_fns[key](image)
-        except (RuntimeError, OSError) as e:
+        except InvalidInputError:
+            raise
+        except Exception as e:  # noqa: BLE001
             self._dispatch_error(Result.DEVICE_ERROR)
             raise DeviceError("detection pipeline failure") from e
         gauss = dogs = None
@@ -199,7 +201,9 @@ class SiftInstance:
             self._matches = match_2nn_fused(
                 buf_a.features.descriptor, buf_a.features.count,
                 buf_b.features.descriptor, buf_b.features.count)
-        except (RuntimeError, OSError) as e:
+        except InvalidInputError:
+            raise
+        except Exception as e:  # noqa: BLE001
             self._dispatch_error(Result.DEVICE_ERROR)
             raise DeviceError("matching pipeline failure") from e
         self._matches_count = None

@@ -10,8 +10,10 @@ Wrappers:
   ``pallas_backhalf.descriptor_tpu`` and ``descriptor_tpu_packed``); plain
   version :func:`.descriptor.raw_descriptors`.
 
-Both launch at their static capacity and read the live count from device
-memory, so the count never crosses to the host.
+Both read the live count from device memory, so the count never crosses
+to the host: the histogram kernel launches at its static capacity, the
+descriptor kernel as a persistent grid that takes pairs from a work
+counter up to the count.
 
 :func:`run_backhalf` is the port of ``pallas_backhalf.run_atlas`` as plain
 PyTorch at full capacity: one record per keypoint with sigma-scaled
@@ -69,10 +71,9 @@ def orientation_hist(flat: torch.Tensor, recs: SampleRecords,
     fn = cuda_lib.entry("orientation_hist", "vks_orientation_hist",
                         [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
                                                  ctypes.c_void_p])
-    rc = fn(flat.data_ptr(), recs.base.data_ptr(), recs.rec.data_ptr(),
-            count.data_ptr(), hist.data_ptr(), cap, ori_radius,
-            cuda_lib.stream_of(flat))
-    cuda_lib.check(rc, "orientation_hist")
+    cuda_lib.launch(fn, flat, "orientation_hist", flat.data_ptr(),
+                    recs.base.data_ptr(), recs.rec.data_ptr(),
+                    count.data_ptr(), hist.data_ptr(), cap, ori_radius)
     orientation_hist.launches += 1
     return hist
 
@@ -89,15 +90,19 @@ def descriptor(flat: torch.Tensor, recs: SampleRecords, count: torch.Tensor,
         return raw_descriptors(flat, recs, count, desc_radius=desc_radius,
                                use_vlfeat=use_vlfeat)
     cap = _check_records(flat, recs, count)
-    desc = torch.zeros((cap, DESC_SIZE), dtype=torch.float32,
-                       device=flat.device)
+    # One zero fill holds the output (rows past the count stay zero) and,
+    # in the element after it, the kernel's work counter (int32 0).
+    buf = torch.zeros(cap * DESC_SIZE + 1, dtype=torch.float32,
+                      device=flat.device)
+    desc = buf[:cap * DESC_SIZE].view(cap, DESC_SIZE)
     fn = cuda_lib.entry("descriptor", "vks_descriptor",
-                        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                         + [ctypes.c_void_p])
-    rc = fn(flat.data_ptr(), recs.base.data_ptr(), recs.rec.data_ptr(),
-            count.data_ptr(), desc.data_ptr(), cap, desc_radius,
-            1 if use_vlfeat else 0, cuda_lib.stream_of(flat))
-    cuda_lib.check(rc, "descriptor")
+    cuda_lib.launch(fn, flat, "descriptor", flat.data_ptr(),
+                    recs.base.data_ptr(), recs.rec.data_ptr(),
+                    count.data_ptr(), desc.data_ptr(),
+                    buf[cap * DESC_SIZE:].data_ptr(), cap, desc_radius,
+                    1 if use_vlfeat else 0)
     descriptor.launches += 1
     return desc
 

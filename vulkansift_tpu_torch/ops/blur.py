@@ -99,10 +99,10 @@ def blur_dog(x: torch.Tensor, taps: Sequence[float], with_dog: bool = True,
                 raise ValueError(f"{name}: expected {tuple(x.shape)} on {x.device}")
     t_np = np.ascontiguousarray(taps, np.float32)
     fn = cuda_lib.entry("blur_dog", "vks_blur_dog", _ARGTYPES)
-    rc = fn(x.data_ptr(), y.data_ptr(), 0 if dog is None else dog.data_ptr(),
-            t_np.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(t_np),
-            h, w, cuda_lib.stream_of(x))
-    cuda_lib.check(rc, "blur_dog")
+    cuda_lib.launch(fn, x, "blur_dog", x.data_ptr(), y.data_ptr(),
+                    0 if dog is None else dog.data_ptr(),
+                    t_np.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                    len(t_np), h, w)
     blur_dog.launches += 1
     return y, dog
 

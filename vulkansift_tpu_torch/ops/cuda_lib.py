@@ -8,8 +8,10 @@ together; a library whose name carries the hash of its source and flags is
 reused. A failed build raises.
 
 Every C entry point launches on the stream it is given (PyTorch's current
-stream) and returns ``cudaGetLastError()``; :func:`check` raises on a
-non-zero code.
+stream) and returns ``cudaGetLastError()``. Wrappers call it through
+:func:`launch`, which makes the call under the tensor's device (a C launch
+goes to the calling thread's current device) with that device's current
+stream, and raises on a non-zero code.
 
 Dispatch rule of every wrapper (:func:`use_kernel`): a CPU tensor takes the
 plain PyTorch version, a CUDA tensor launches the kernel. The only way a
@@ -40,10 +42,18 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("blur_dog", "frontend", "orientation_hist", "descriptor",
            "match_2nn")
-# --fmad=false: the blur and the Newton walk code reproduce the plain
-# versions' float rounding, which a fused multiply-add would change.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+# Built with --fmad=false: the blur and the frontend's walk code reproduce
+# the plain versions' float rounding, which a fused multiply-add would
+# change (the histogram and the integer matcher are kept as they were
+# measured). The descriptor, held to a u8 tolerance, contracts freely.
+NO_FMAD = ("blur_dog", "frontend", "orientation_hist", "match_2nn")
+
+
+def nvcc_flags(name: str) -> Tuple[str, ...]:
+    """nvcc's flags for the kernel source ``name``."""
+    return NVCC_FLAGS + (("--fmad=false",) if name in NO_FMAD else ())
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -65,7 +75,7 @@ def nvcc_path() -> str:
 def _lib_path(name: str) -> Path:
     # -Xptxas -v only reports, so it is not part of the hash.
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(src + " ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"libvks_{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -85,7 +95,7 @@ def build(verbose: bool = False) -> Dict[str, dict]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp),
+        cmd = [nvcc_path(), *nvcc_flags(name), *extra, "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -141,6 +151,15 @@ def check(rc: int, name: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(fn, t: torch.Tensor, name: str, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` with ``t``'s device
+    current, so that the kernel runs where ``t`` lies and not on whatever
+    device the calling thread has current; raise if it returns an error."""
+    with torch.cuda.device(t.device):
+        rc = fn(*args, stream_of(t))
+    check(rc, name)
 
 
 def use_kernel(t: torch.Tensor) -> bool:

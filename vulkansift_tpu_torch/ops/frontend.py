@@ -19,12 +19,16 @@ import torch
 from . import cuda_lib
 from .extract import Candidates, compact_candidates, dense_frontend
 
+# vks_frontend(dog, code, counts, ns, H, W, thr08, stream)
+_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3
+             + (ctypes.c_float, ctypes.c_void_p))
+
 
 def frontend(dog: torch.Tensor, dog_threshold: float
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(code u8 (S, H-2, W-2), row counts i32 (S, H-2)) of one octave's
-    contiguous (S+2, H, W) f32 DoG stack; see :mod:`.extract` for the
-    layout. A CUDA tensor launches the kernel; a CPU tensor runs
+    contiguous (S+2, H, W) f32 DoG stack, any S >= 1; see :mod:`.extract`
+    for the layout. A CUDA tensor launches the kernel; a CPU tensor runs
     :func:`.extract.dense_frontend`."""
     if not cuda_lib.use_kernel(dog):
         return dense_frontend(dog, dog_threshold)
@@ -35,12 +39,9 @@ def frontend(dog: torch.Tensor, dog_threshold: float
     counts = torch.zeros((ns - 2, h - 2), dtype=torch.int32,
                          device=dog.device)
     thr08 = float(np.float32(dog_threshold * 0.8))
-    fn = cuda_lib.entry("frontend", "vks_frontend", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-    rc = fn(dog.data_ptr(), code.data_ptr(), counts.data_ptr(), ns, h, w,
-            thr08, cuda_lib.stream_of(dog))
-    cuda_lib.check(rc, "frontend")
+    fn = cuda_lib.entry("frontend", "vks_frontend", _ARGTYPES)
+    cuda_lib.launch(fn, dog, "frontend", dog.data_ptr(), code.data_ptr(),
+                    counts.data_ptr(), ns, h, w, thr08)
     frontend.launches += 1
     return code, counts
 

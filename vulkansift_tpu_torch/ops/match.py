@@ -173,10 +173,9 @@ def match_2nn_tiles(desc_a: torch.Tensor, count_a: Count,
     out = tuple(torch.empty(na, dtype=torch.int32, device=dev)
                 for _ in range(4))
     fn = cuda_lib.entry("match_2nn", "vks_match_2nn", _ARGTYPES)
-    rc = fn(desc_a.data_ptr(), cnt_a.data_ptr(), desc_b.data_ptr(),
-            cnt_b.data_ptr(), *(o.data_ptr() for o in out), na, nb,
-            cuda_lib.stream_of(desc_a))
-    cuda_lib.check(rc, "match_2nn")
+    cuda_lib.launch(fn, desc_a, "match_2nn", desc_a.data_ptr(),
+                    cnt_a.data_ptr(), desc_b.data_ptr(), cnt_b.data_ptr(),
+                    *(o.data_ptr() for o in out), na, nb)
     match_2nn_tiles.launches += 1
     return out
 
