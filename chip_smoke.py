@@ -16,7 +16,8 @@
    the frame and on ragged and tiny layers (n < k) with every tap count,
    the frontend bit for bit on all 7 octaves and on ragged, tiny,
    unaligned and 17-layer stacks, the descriptor in UBC and VLFeat order
-   (u8 bar, rows past the count zero, two launches equal byte for byte),
+   and on the pyramid at 1/16 and 1/256 of its contrast (u8 bar, rows
+   past the count zero, two launches equal byte for byte),
    the 2-NN matcher bit for bit at
    16384x16384, with ties on its tile and slice edges (placed from
    ``ops/match.KERNEL_GEOMETRY``), with a ragged A and with count_b 0
@@ -183,21 +184,16 @@ class Parent:
     checkout (``--parent DIR``, for example ``git archive`` of the parent
     commit unpacked into the git-ignored ``build/``), built with the port's
     nvcc flags and launched through their C entry points, so that the two
-    designs are timed in one call on one card. A descriptor entry point
-    without the work-counter argument (the design before the persistent
-    grid) is called without it."""
+    designs are timed in one call on one card."""
 
     def __init__(self, root: str):
         self.fns = {}
         csrc = Path(root) / "vulkansift_tpu_torch" / "csrc"
-        self.desc_work = "void* work" in (csrc / "descriptor.cu").read_text()
-        desc_argtypes = ([ctypes.c_void_p] * (6 if self.desc_work else 5)
-                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         procs = []
         for name, sym, argtypes in (
                 ("blur_dog", "vks_blur_dog", blur._ARGTYPES),
                 ("frontend", "vks_frontend", frontend._ARGTYPES),
-                ("descriptor", "vks_descriptor", desc_argtypes),
+                ("descriptor", "vks_descriptor", backhalf._DESC_ARGTYPES),
                 ("match_2nn", "vks_match_2nn", match_mod._ARGTYPES)):
             src = csrc / f"{name}.cu"
             out = cuda_lib.BUILD_DIR / f"parent_{name}.so"
@@ -235,15 +231,9 @@ class Parent:
         return code, counts
 
     def descriptor(self, flat, recs, count, radius: int, vlfeat: bool):
-        cap = recs.rec.shape[0]
-        buf = torch.zeros(cap * 128 + 1, dtype=torch.float32,
-                          device=flat.device)
-        work = (buf[cap * 128:].data_ptr(),) if self.desc_work else ()
-        cuda_lib.launch(self.fns["descriptor"], flat, "parent descriptor",
-                        flat.data_ptr(), recs.base.data_ptr(),
-                        recs.rec.data_ptr(), count.data_ptr(),
-                        buf.data_ptr(), *work, cap, radius, int(vlfeat))
-        return buf[:cap * 128].view(cap, 128)
+        return backhalf._launch_descriptor(self.fns["descriptor"], flat, recs,
+                                           count, radius, vlfeat,
+                                           "parent descriptor")
 
     def match(self, a, ca, b, cb):
         out = tuple(torch.empty(a.shape[0], dtype=torch.int32,
@@ -530,13 +520,13 @@ def check_orientation_hist(cap: dict) -> dict:
                 frame_launches=1, frame_ms=ms, frame_bound_ms=b_ms)
 
 
-def descriptor_gate(flat, recs, cnt, r: int, vl: bool):
+def descriptor_gate(flat, recs, cnt, r: int, vl: bool, what: str = ""):
     """Kernel vs plain version on the frame's pair records in one bin
     order: at least 99.5 % of u8 bins within +-1 and none off by more than
     8 (the JAX package's bar), rows past the count zero, and two launches
     equal byte for byte. Returns (raw max abs error, share within 1, max
     u8 difference)."""
-    fmt = "VLFeat" if vl else "UBC"
+    fmt = ("VLFeat" if vl else "UBC") + what
     d_k = backhalf.descriptor(flat, recs, cnt, desc_radius=r, use_vlfeat=vl)
     d_2 = backhalf.descriptor(flat, recs, cnt, desc_radius=r, use_vlfeat=vl)
     check(torch.equal(d_k.view(torch.int32), d_2.view(torch.int32)),
@@ -565,6 +555,11 @@ def check_descriptor(cap: dict, parent) -> dict:
     r, vl = cap["desc_radius"], cap["use_vlfeat"]
     descriptor_gate(flat, recs, cnt, r, not vl)
     err, within, qmax = descriptor_gate(flat, recs, cnt, r, vl)
+    # Low contrast: the pyramid scaled by 1/16 (a frame in 0..16 u8) and by
+    # 1/256; the kernel's fixed-point step follows each pair's gradients.
+    for k in (16, 256):
+        descriptor_gate(flat * (1.0 / k), recs, cnt, r, vl,
+                        f" contrast 1/{k}")
     n = int(cnt)
     ms = device_ms(lambda: backhalf.descriptor(
         flat, recs, cnt, desc_radius=r, use_vlfeat=vl))

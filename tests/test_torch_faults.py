@@ -4,6 +4,8 @@
   its tensor's device, with that device's stream: the entry point,
   ``torch.cuda.device`` and ``torch.cuda.current_stream`` are stubbed, and
   ``use_kernel`` is forced on, so a CPU tensor takes the launch path.
+* The descriptor's output carries the kernel's work counter after its
+  rows, as ``csrc/descriptor.cu`` expects.
 * ``SiftInstance.detect_features`` and ``match_features`` turn any failure
   other than invalid input into ``DeviceError`` plus
   ``on_error(Result.DEVICE_ERROR)``, as the JAX instance does for the same
@@ -118,6 +120,29 @@ def test_wrapper_launches_under_the_tensors_device(case, monkeypatch):
     assert nargs == nargtypes
     assert g.active == []
     assert wrapper.launches == before + 1
+
+
+def test_descriptor_output_holds_the_work_counter(monkeypatch):
+    """The descriptor's C entry point finds its int32 work counter, zero,
+    in the element after the K x 128 rows of its output
+    (``csrc/descriptor.cu``); the rows start zeroed."""
+    g = _Guards()
+    monkeypatch.setattr(torch.cuda, "device", g.device)
+    monkeypatch.setattr(torch.cuda, "current_stream", g.current_stream)
+    seen = []
+
+    def fn(*args):
+        seen.append(args)
+        return 0
+    desc = backhalf._launch_descriptor(
+        fn, torch.zeros(120), _records(3), torch.tensor(2, dtype=torch.int32),
+        4, False, "descriptor")
+    (args,) = seen
+    assert len(args) == len(backhalf._DESC_ARGTYPES)
+    assert desc.shape == (3, 128) and args[4] == desc.data_ptr()
+    assert args[5:8] == (3, 4, 0)
+    whole = torch.empty(0).set_(desc.untyped_storage(), 0, (3 * 128 + 1,))
+    assert not whole.any() and whole.view(torch.int32)[-1].item() == 0
 
 
 def test_launch_raises_on_a_kernel_error(monkeypatch):

@@ -27,20 +27,25 @@
 //    memory (one per warp, each in 4 interleaved copies by lane, to spread
 //    same-bin updates over banks), updated by integer shared-memory
 //    atomics: integer addition does not depend on the order, so two
-//    launches give the same bytes. The scale 2^k is the largest power of
-//    two with 2^k <= L/2, L = (2^31 - 1) / edge^2; a contribution is
-//    rounded to the nearest multiple of 2^-k and capped at L, so a bin (at
-//    most one contribution per pixel) cannot overflow. For pyramid values
-//    in [0, 1] (|g| <= 0.71) the cap never binds and each contribution is
-//    off by at most 2^-(k+1) (2^-18 at the 89-pixel window);
+//    launches give the same bytes. The scale is set per pair from gmax,
+//    the pair's largest gradient magnitude (a first pass over the
+//    window's pixels): 2^k is the largest power of two with
+//    2^k * gmax <= L, L = (2^31 - 1) / edge^2. A contribution is at most
+//    gmax (its weights are at most 1), is rounded to the nearest multiple
+//    of 2^-k and is capped at L, so a bin (at most one contribution per
+//    pixel) cannot overflow, and each contribution is off by at most
+//    gmax / L (gmax * 2^-18 at the 89-pixel window): the same share of the
+//    pair's gradients at any contrast;
 //  * per-pair work out of the pixel loop: the gaussian weight factors
 //    along the rotation-invariant sdx^2 + sdy^2 into two tables of 2r+1
 //    values, and each window row's span of columns that can reach the
 //    rotated 4x4 grid (about half the window) is solved once;
 //  * the block walks only the pixels inside the spans, numbered in
-//    raster order (coalesced reads of q[+-1] and q[+-w]): a prefix sum of
-//    the span lengths maps a pixel's number to its row by binary search,
-//    so every lane of a step has a pixel to add;
+//    raster order (coalesced reads of q[+-1] and q[+-w]), twice: once for
+//    gmax, once to add. Thread t takes the numbers t, t + 128, ...: a
+//    prefix sum of the span lengths gives the row of its first number by
+//    binary search, and each later number's row by stepping forward from
+//    the last, so every lane of a step has a pixel;
 //  * held to a u8 tolerance, this kernel alone is built with fused
 //    multiply-adds and uses fast intrinsics: __sincosf and __expf per pair,
 //    x * rsqrt(x) for |g|, and a polynomial atan2 (1e-5 rad).
@@ -58,8 +63,9 @@
 struct Pair {
   const float* img;
   int w, h, cx, cy, rad, edge;
-  float fx, fy, kcos, ksin, ori, scale;
-  int qmax;
+  float fx, fy, kcos, ksin, ori;
+  float scale;  // 2^k, set once the pair's gmax is known
+  int qmax;     // L
 };
 
 // The setup of one pair from its record (sx, sy, sigma, cx, cy, w, h,
@@ -88,12 +94,34 @@ __device__ __forceinline__ Pair make_pair(const float* r, long long base,
   P.rad = !(ir >= 0.0f) ? -1 : (ir > (float)max_radius ? max_radius
                                                          : (int)ir);
   P.edge = 2 * P.rad + 1;
-  // Fixed-point scale (see the header): 2^k <= L/2, L = (2^31-1)/npix.
+  // The fixed-point cap L = (2^31-1)/npix (see the header).
   const int npix = P.rad >= 0 ? P.edge * P.edge : 0;
-  const int lim = npix > 0 ? 0x7fffffff / npix : 0x7fffffff;
-  P.scale = __int_as_float((127 + (30 - __clz(lim))) << 23);
-  P.qmax = lim;
+  P.qmax = npix > 0 ? 0x7fffffff / npix : 0x7fffffff;
+  P.scale = 1.0f;
   return P;
+}
+
+// The gradient magnitude of the pixel at window row iy_, column ix_: the
+// same expression in the gmax pass and in add_pixel.
+__device__ __forceinline__ float grad_mag(const Pair& P, int iy_, int ix_,
+                                          float* gx, float* gy) {
+  const float* q =
+      P.img + (size_t)(P.cy + iy_ - P.rad) * P.w + (P.cx + ix_ - P.rad);
+  *gx = 0.5f * (q[1] - q[-1]);
+  *gy = 0.5f * (q[P.w] - q[-P.w]);
+  const float g2 = *gx * *gx + *gy * *gy;
+  return g2 > 0.0f ? g2 * rsqrtf(g2) : 0.0f;
+}
+
+// 2^k, the largest power of two with 2^k * gmax <= qmax (k within
+// [-100, 100]; 1 for a flat window).
+__device__ __forceinline__ float fixed_scale(float gmax, int qmax) {
+  int k = 0;
+  if (gmax > 0.0f) {
+    const float q = (float)qmax / gmax;
+    k = min(max((__float_as_int(q) >> 23) - 127, -100), 100);
+  }
+  return __int_as_float((127 + k) << 23);
 }
 
 // atan2(y, x) in [0, 2pi): the octant's atan(t), t = min/max in [0, 1], by
@@ -115,22 +143,17 @@ __device__ __forceinline__ float atan2_0_2pi(float y, float x) {
 
 // The 2 x 2 x 2 trilinear updates of one pixel (window row iy_, column
 // ix_) into the warp's histogram copy.
-__device__ __forceinline__ void add_pixel(const Pair& P, int e,
+__device__ __forceinline__ void add_pixel(const Pair& P, int iy_, int ix_,
                                           const float* ex, const float* ey,
                                           int* hist, int vlfeat) {
   const float TWO_PI = (float)(2.0 * 3.141592653589793);
   const float BIN_SCALE = (float)(8.0 / (2.0 * 3.141592653589793));
-  const int iy_ = e >> 16, ix_ = e & 0xffff;
-  const int dx = ix_ - P.rad, dy = iy_ - P.rad;
-  const float* q = P.img + (size_t)(P.cy + dy) * P.w + (P.cx + dx);
-  const float gx = 0.5f * (q[1] - q[-1]);
-  const float gy = 0.5f * (q[P.w] - q[-P.w]);
-  const float sdx = (float)dx - P.fx;
-  const float sdy = (float)dy - P.fy;
+  float gx, gy;
+  const float mag = (ex[ix_] * ey[iy_]) * grad_mag(P, iy_, ix_, &gx, &gy);
+  const float sdx = (float)(ix_ - P.rad) - P.fx;
+  const float sdy = (float)(iy_ - P.rad) - P.fy;
   const float ox = P.kcos * sdx + P.ksin * sdy;
   const float oy = P.kcos * sdy - P.ksin * sdx;
-  const float g2 = gx * gx + gy * gy;
-  const float mag = (ex[ix_] * ey[iy_]) * (g2 > 0.0f ? g2 * rsqrtf(g2) : 0.0f);
   // theta and the orientation both lie in [0, 2pi]: one correction each
   // way is the remainder.
   float rel = atan2_0_2pi(gy, gx) - P.ori;
@@ -162,6 +185,16 @@ __device__ __forceinline__ void add_pixel(const Pair& P, int e,
       }
     }
   }
+}
+
+// The row of pixel number k (k < pre[edge]): the last r with pre[r] <= k.
+__device__ __forceinline__ int first_row(const int* pre, int edge, int k) {
+  int lo = 0, hi = edge;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (pre[mid] <= k) lo = mid; else hi = mid;
+  }
+  return lo;
 }
 
 // The window columns [lo, hi] of row r (dy = r - rad) that can contribute:
@@ -221,13 +254,14 @@ descriptor_kernel(const float* __restrict__ flat,
   const int n = min(*count, capacity);
 
   __shared__ int s_pair;
+  __shared__ float s_gmax[WARPS];
   for (;;) {
     if (tid == 0) s_pair = atomicAdd(work, 1);
     __syncthreads();  // also: the last pair's histograms have been read
     const int pr = s_pair;
     if (pr >= n) break;
 
-    const Pair P = make_pair(rec + (size_t)pr * 8, base[pr], flat, max_radius);
+    Pair P = make_pair(rec + (size_t)pr * 8, base[pr], flat, max_radius);
     // exp(-(ox^2 + oy^2)/8) = exp(-k2 sdx^2/8) exp(-k2 sdy^2/8), since the
     // rotation keeps sdx^2 + sdy^2.
     const float k2 = P.kcos * P.kcos + P.ksin * P.ksin;
@@ -242,8 +276,7 @@ descriptor_kernel(const float* __restrict__ flat,
     }
     __syncthreads();
 
-    // Exclusive prefix of the rows' span lengths (warp 0), then each
-    // thread maps its pixel number to a row by binary search.
+    // Exclusive prefix of the rows' span lengths (warp 0).
     if (warp == 0) {
       int run = 0;
       for (int r0 = 0; r0 < P.edge; r0 += 32) {
@@ -261,19 +294,34 @@ descriptor_kernel(const float* __restrict__ flat,
       if (lane == 0 && P.edge > 0) pre[P.edge] = run;
     }
     __syncthreads();
-    int* mine = hist + (lane & (COPIES - 1));
     const int total = P.edge > 0 ? pre[P.edge] : 0;
-    for (int k0 = 0; k0 < total; k0 += THREADS) {
-      const int k = k0 + tid;
-      if (k < total) {
-        int lo = 0, hi = P.edge;
-        while (hi - lo > 1) {
-          const int mid = (lo + hi) >> 1;
-          if (pre[mid] <= k) lo = mid; else hi = mid;
-        }
-        add_pixel(P, (lo << 16) | (span_lo[lo] + (k - pre[lo])), ex, ey, mine,
-                  vlfeat);
-      }
+    const int row0 = first_row(pre, P.edge, tid);
+
+    // gmax over the pixels the walk will add; max is exact in any order.
+    float gm = 0.0f;
+    int row = row0;
+#pragma unroll 4
+    for (int k = tid; k < total; k += THREADS) {
+      while (pre[row + 1] <= k) ++row;
+      float gx, gy;
+      gm = fmaxf(gm, grad_mag(P, row, span_lo[row] + (k - pre[row]), &gx,
+                              &gy));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, o));
+    if (lane == 0) s_gmax[warp] = gm;
+    __syncthreads();
+    float gmax = s_gmax[0];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) gmax = fmaxf(gmax, s_gmax[w]);
+    P.scale = fixed_scale(gmax, P.qmax);
+
+    int* mine = hist + (lane & (COPIES - 1));
+    row = row0;
+    for (int k = tid; k < total; k += THREADS) {
+      while (pre[row + 1] <= k) ++row;
+      add_pixel(P, row, span_lo[row] + (k - pre[row]), ex, ey, mine, vlfeat);
     }
     __syncthreads();
 
@@ -292,10 +340,13 @@ descriptor_kernel(const float* __restrict__ flat,
   }
 }
 
+// desc: capacity x 128 floats, zeroed by the caller, followed in the same
+// allocation by the int32 work counter, zero (ops/backhalf.py
+// _launch_descriptor makes it).
 extern "C" int vks_descriptor(const void* flat, const void* base,
                               const void* rec, const void* count, void* desc,
-                              void* work, int capacity, int max_radius,
-                              int vlfeat, void* stream) {
+                              int capacity, int max_radius, int vlfeat,
+                              void* stream) {
   if (capacity < 0 || max_radius < 0 || max_radius > 0x3fff)
     return (int)cudaErrorInvalidValue;
   if (capacity == 0) return (int)cudaGetLastError();
@@ -315,7 +366,8 @@ extern "C" int vks_descriptor(const void* flat, const void* base,
   const int blocks = min(sms * BLOCKS_PER_SM, capacity);
   descriptor_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)flat, (const long long*)base, (const float*)rec,
-      (const int*)count, (float*)desc, (int*)work, capacity, max_radius,
+      (const int*)count, (float*)desc,
+      (int*)((float*)desc + (size_t)capacity * NBINS), capacity, max_radius,
       vlfeat);
   return (int)cudaGetLastError();
 }

@@ -81,6 +81,27 @@ def orientation_hist(flat: torch.Tensor, recs: SampleRecords,
 orientation_hist.launches = 0
 
 
+# vks_descriptor(flat, base, rec, count, desc, capacity, max_radius, vlfeat,
+# stream)
+_DESC_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def _launch_descriptor(fn, flat: torch.Tensor, recs: SampleRecords,
+                       count: torch.Tensor, desc_radius: int,
+                       use_vlfeat: bool, name: str) -> torch.Tensor:
+    """Call the descriptor entry point ``fn`` into a new output and return
+    its (K, 128) rows. One zero fill holds the rows (those past the count
+    stay zero) and, in the element after them, the kernel's int32 work
+    counter (0), where ``csrc/descriptor.cu`` looks for it."""
+    cap = recs.rec.shape[0]
+    buf = torch.zeros(cap * DESC_SIZE + 1, dtype=torch.float32,
+                      device=flat.device)
+    cuda_lib.launch(fn, flat, name, flat.data_ptr(), recs.base.data_ptr(),
+                    recs.rec.data_ptr(), count.data_ptr(), buf.data_ptr(),
+                    cap, desc_radius, 1 if use_vlfeat else 0)
+    return buf[:cap * DESC_SIZE].view(cap, DESC_SIZE)
+
+
 def descriptor(flat: torch.Tensor, recs: SampleRecords, count: torch.Tensor,
                *, desc_radius: int, use_vlfeat: bool) -> torch.Tensor:
     """Raw (K, 128) descriptors of the first ``count`` pair records (rows
@@ -89,20 +110,10 @@ def descriptor(flat: torch.Tensor, recs: SampleRecords, count: torch.Tensor,
     if not cuda_lib.use_kernel(flat):
         return raw_descriptors(flat, recs, count, desc_radius=desc_radius,
                                use_vlfeat=use_vlfeat)
-    cap = _check_records(flat, recs, count)
-    # One zero fill holds the output (rows past the count stay zero) and,
-    # in the element after it, the kernel's work counter (int32 0).
-    buf = torch.zeros(cap * DESC_SIZE + 1, dtype=torch.float32,
-                      device=flat.device)
-    desc = buf[:cap * DESC_SIZE].view(cap, DESC_SIZE)
-    fn = cuda_lib.entry("descriptor", "vks_descriptor",
-                        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                        + [ctypes.c_void_p])
-    cuda_lib.launch(fn, flat, "descriptor", flat.data_ptr(),
-                    recs.base.data_ptr(), recs.rec.data_ptr(),
-                    count.data_ptr(), desc.data_ptr(),
-                    buf[cap * DESC_SIZE:].data_ptr(), cap, desc_radius,
-                    1 if use_vlfeat else 0)
+    _check_records(flat, recs, count)
+    desc = _launch_descriptor(
+        cuda_lib.entry("descriptor", "vks_descriptor", _DESC_ARGTYPES), flat,
+        recs, count, desc_radius, use_vlfeat, "descriptor")
     descriptor.launches += 1
     return desc
 
