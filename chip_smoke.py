@@ -15,15 +15,22 @@
    PyTorch version on the card: the blur bit for bit on all 36 layers of
    the frame and on ragged and tiny layers (n < k) with every tap count,
    the frontend bit for bit on all 7 octaves and on ragged, tiny,
-   unaligned and 17-layer stacks, the descriptor in UBC and VLFeat order
-   and on the pyramid at 1/16 and 1/256 of its contrast (u8 bar, rows
-   past the count zero, two launches equal byte for byte),
-   the 2-NN matcher bit for bit at
+   unaligned and 17-layer stacks, the orientation histogram within 1e-4
+   on the frame's records, at 1/16 and 1/256 of the contrast (the bar
+   scaled to match), at counts 0 and 1 and on synthetic edge records
+   (windows clipped at a layer's corners, a window larger than the
+   smallest octave's layer, radius 0 and 28), the descriptor in UBC and
+   VLFeat order and on the pyramid at 1/16 and 1/256 of its contrast (u8
+   bar); every back-half gate also holds rows past the count at zero and
+   two launches equal byte for byte; the 2-NN matcher bit for bit at
    16384x16384, with ties on its tile and slice edges (placed from
    ``ops/match.KERNEL_GEOMETRY``), with a ragged A and with count_b 0
    and 1. Each kernel is timed on the device (CUDA events around calls
    queued behind a device-side sleep) and summed over its launches of a
-   frame at their own shapes. Then one ``detect_features`` at
+   frame at their own shapes; the histogram also at count 0, beside a
+   zero fill of its output and its instruction-issue floor (the SASS
+   loop's instructions a cell, by ``cuobjdump``). Then one
+   ``detect_features`` at
    ``nb_scales_per_octave=15`` on a 640x480 frame against the all-plain
    pipeline.
 4. Drives the detect path: ``SiftInstance.detect_features`` at 1536x1024
@@ -44,10 +51,11 @@
    torch.profiler breakdown of three frames (device busy time, idle share,
    the kernels that take the most device time).
 
-``--parent DIR`` also builds the blur, frontend, descriptor and matcher
-sources of the checkout at DIR (for example the parent commit, unpacked
-with ``git archive`` into the git-ignored ``build/``), checks that they
-agree with these and times them in turns with these.
+``--parent DIR`` also builds the blur, frontend, orientation-histogram,
+descriptor and matcher sources of the checkout at DIR (for example the
+parent commit, unpacked with ``git archive`` into the git-ignored
+``build/``), checks that they agree with these and times them in turns
+with these.
 
 Any failure raises, so the script exits non-zero and prints no result
 line; it also exits non-zero when no CUDA card is available.
@@ -59,6 +67,7 @@ import argparse
 import ctypes
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -69,11 +78,12 @@ import numpy as np
 import torch
 
 import vulkansift_tpu_torch as vt
+from vulkansift_tpu_torch.config import NB_ORI_HIST_BINS
 from vulkansift_tpu_torch.ops import backhalf, blur, cuda_lib, frontend
 from vulkansift_tpu_torch.ops import descriptor as desc_mod
 from vulkansift_tpu_torch.ops import extract, gaussian
 from vulkansift_tpu_torch.ops import match as match_mod
-from vulkansift_tpu_torch.ops import orientation
+from vulkansift_tpu_torch.ops import orientation, patches
 from vulkansift_tpu_torch.ops.scale_space import upsample2x_linear
 from vulkansift_tpu_torch.pipeline import make_detect_fn
 
@@ -180,11 +190,12 @@ def ab_ms(new, old, reps: int = REPS):
 
 
 class Parent:
-    """The blur, frontend, descriptor and matcher kernels of another
-    checkout (``--parent DIR``, for example ``git archive`` of the parent
-    commit unpacked into the git-ignored ``build/``), built with the port's
-    nvcc flags and launched through their C entry points, so that the two
-    designs are timed in one call on one card."""
+    """The blur, frontend, orientation-histogram, descriptor and matcher
+    kernels of another checkout (``--parent DIR``, for example ``git
+    archive`` of the parent commit unpacked into the git-ignored
+    ``build/``), built with the port's nvcc flags and launched through
+    their C entry points, so that the two designs are timed in one call on
+    one card."""
 
     def __init__(self, root: str):
         self.fns = {}
@@ -193,6 +204,8 @@ class Parent:
         for name, sym, argtypes in (
                 ("blur_dog", "vks_blur_dog", blur._ARGTYPES),
                 ("frontend", "vks_frontend", frontend._ARGTYPES),
+                ("orientation_hist", "vks_orientation_hist",
+                 backhalf._HIST_ARGTYPES),
                 ("descriptor", "vks_descriptor", backhalf._DESC_ARGTYPES),
                 ("match_2nn", "vks_match_2nn", match_mod._ARGTYPES)):
             src = csrc / f"{name}.cu"
@@ -230,6 +243,19 @@ class Parent:
                         ns, h, w, float(np.float32(thr * 0.8)))
         return code, counts
 
+    def orientation_hist(self, flat, recs, count, radius: int):
+        # The older design's layout: a zero-filled output whose rows past
+        # the count its kernel leaves as they are (the current kernel
+        # writes every row, so its output needs no fill).
+        hist = torch.zeros((recs.rec.shape[0], NB_ORI_HIST_BINS),
+                           device=flat.device)
+        cuda_lib.launch(self.fns["orientation_hist"], flat,
+                        "parent orientation_hist", flat.data_ptr(),
+                        recs.base.data_ptr(), recs.rec.data_ptr(),
+                        count.data_ptr(), hist.data_ptr(), hist.shape[0],
+                        radius)
+        return hist
+
     def descriptor(self, flat, recs, count, radius: int, vlfeat: bool):
         return backhalf._launch_descriptor(self.fns["descriptor"], flat, recs,
                                            count, radius, vlfeat,
@@ -243,6 +269,13 @@ class Parent:
             ca.data_ptr(), b.data_ptr(), cb.data_ptr(),
             *(o.data_ptr() for o in out), a.shape[0], b.shape[0])
         return out
+
+
+def max_sm_clock_mhz() -> float:
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0])
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
@@ -494,30 +527,176 @@ def _window_work(flat, recs, count: int, radius_fn, max_radius: int,
     return nbytes, ops_per_px * cells, cells
 
 
-def check_orientation_hist(cap: dict) -> dict:
-    flat, recs, cnt = cap["flat"], cap["hist_records"], cap["hist_count"]
-    r = cap["ori_radius"]
+def sass_loop(lib: str, kernel: str, marker: str = "MUFU.EX2"):
+    """(instructions, markers) of the innermost loop of ``kernel`` in the
+    library ``lib`` whose body holds ``marker``: the SASS (``cuobjdump
+    -sass``) from a backward branch's target to the branch. With one
+    ``expf`` a cell, the MUFU.EX2 count is the cells an (unrolled) body
+    handles. None when cuobjdump is missing or no such loop exists."""
+    tool = Path(cuda_lib.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    code, fn = [], None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and fn is not None and kernel in fn:
+            code.append((int(m.group(1), 16), m.group(2)))
+    best = None
+    for addr, ins in code:
+        m = re.search(r"\bBRA(?:\.\S+)?\s.*0x([0-9a-f]+)$", ins)
+        if not m or int(m.group(1), 16) >= addr:
+            continue
+        body = [i for a, i in code
+                if int(m.group(1), 16) <= a <= addr and i != "NOP"]
+        k = sum(marker in i for i in body)
+        if k and (best is None or len(body) < best[0]):
+            best = (len(body), k)
+    return best
+
+
+def hist_gate(flat, recs, cnt, r: int, what: str, bar: float = 1e-4):
+    """Kernel vs plain version on one set of records: every bin within
+    ``bar``, rows past the count zero, two launches equal byte for byte.
+    The first launch gets an output block that held NaNs (the caching
+    allocator hands back the block just freed), so the rows past the count
+    are zero because the kernel wrote them. Returns the max abs error."""
+    poison = torch.full((recs.rec.shape[0], NB_ORI_HIST_BINS), math.nan,
+                        device=flat.device)
+    ptr = poison.data_ptr()
+    del poison
     h_k = backhalf.orientation_hist(flat, recs, cnt, ori_radius=r)
+    check(h_k.data_ptr() == ptr, f"orientation_hist {what}: the output did "
+          "not reuse the NaN-filled block")
+    h_2 = backhalf.orientation_hist(flat, recs, cnt, ori_radius=r)
+    check(torch.equal(h_k.view(torch.int32), h_2.view(torch.int32)),
+          f"orientation_hist {what}: two launches differ")
     h_p = orientation.raw_histograms(flat, recs, cnt, ori_radius=r)
     err = (h_k - h_p).abs().max().item()
-    check(err <= 1e-4, f"orientation_hist err {err}")
+    n = max(int(cnt), 0)
+    check(err <= bar, f"orientation_hist {what}: err {err} > {bar}")
+    check(not h_k[n:].any(), f"orientation_hist {what}: a row past the "
+          "count is not zero")
+    print(f"orientation_hist {what} keypoints={n} err={err:.3g} (bar "
+          f"{bar:.3g}); two launches equal; rows past the count zero",
+          flush=True)
+    return err
+
+
+def hist_edge_records(r_max: int):
+    """Synthetic histogram records on two random layers, 64x96 and the
+    frame's smallest octave's 32x48: windows of radius 12 clipped at each
+    corner of the 64x96 layer (centres on its corner pixels and at (w, h),
+    which ``keypoint_records`` allows), a window of radius ``r_max`` over
+    the whole 32x48 layer, radius 0, radius ``r_max`` inside the 64x96
+    layer, and a sigma whose radius exceeds ``r_max`` (clamped to it).
+    Returns (flat, records)."""
+    (h0, w0), (h1, w1) = (64, 96), (32, 48)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    flat = torch.rand(h0 * w0 + h1 * w1, generator=gen, device="cuda")
+
+    def sig(rad: float) -> float:  # floor(3 * 1.5 * sig) == rad
+        return (rad + 0.5) / 4.5
+    rows = [(0, cx + 0.3, cy - 0.2, sig(12), cx, cy, w0, h0)
+            for cx, cy in ((0, 0), (w0 - 1, 0), (0, h0 - 1),
+                           (w0 - 1, h0 - 1), (w0, h0))]
+    rows += [(h0 * w0, 24.1, 15.6, sig(r_max), 24, 16, w1, h1),
+             (0, 40.2, 30.1, 0.2, 40, 30, w0, h0),
+             (0, 48.4, 32.3, sig(r_max), 48, 32, w0, h0),
+             (0, 30.0, 20.0, sig(r_max + 12), 30, 20, w0, h0)]
+    base = torch.tensor([r[0] for r in rows], dtype=torch.int64,
+                        device="cuda")
+    rec = torch.tensor([list(r[1:]) + [0.0] for r in rows],
+                       dtype=torch.float32, device="cuda")
+    return flat, patches.SampleRecords(base, rec)
+
+
+def check_orientation_hist(cap: dict, parent) -> dict:
+    """The frame's records against the plain version (``hist_gate``: bins
+    within 1e-4, rows past the count zero, two launches equal); the same
+    on the pyramid at 1/16 and 1/256 of its contrast with the bar scaled to
+    match, at counts 0 and 1, and on ``hist_edge_records`` at the largest
+    radius of nb_scales_per_octave=1. Timed at the frame's count and at
+    count 0, beside a zero fill of its output, its bound and its
+    instruction-issue floor."""
+    flat, recs, cnt = cap["flat"], cap["hist_records"], cap["hist_count"]
+    r = cap["ori_radius"]
+    err = hist_gate(flat, recs, cnt, r, "frame")
+    for k in (16, 256):
+        hist_gate(flat * (1.0 / k), recs, cnt, r, f"contrast 1/{k}",
+                  1e-4 / k)
+    for c in (0, 1):
+        hist_gate(flat, recs, _cuda_count(c), r, f"count {c}")
+    r1 = patches.max_orientation_radius(vt.SiftConfig(nb_scales_per_octave=1))
+    e_flat, e_recs = hist_edge_records(r1)
+    hist_gate(e_flat, e_recs, _cuda_count(e_recs.rec.shape[0]), r1,
+              f"edge records (corners, a window over a 32x48 layer, radius 0,"
+              f" radius {r1} and one clamped to it)")
+    del e_flat, e_recs
+
     ms = device_ms(lambda: backhalf.orientation_hist(
         flat, recs, cnt, ori_radius=r))
+    # A zero fill of the output (what the older wrapper launched before its
+    # kernel), and the kernel at count 0 (its launch and the zeros it
+    # writes to every row).
+    fill_ms = device_ms(lambda: torch.zeros(
+        (recs.rec.shape[0], NB_ORI_HIST_BINS), device=flat.device))
+    zero = _cuda_count(0)
+    count0_ms = device_ms(lambda: backhalf.orientation_hist(
+        flat, recs, zero, ori_radius=r))
     plain_ms = median_ms(lambda: orientation.raw_histograms(
         flat, recs, cnt, ori_radius=r), PLAIN_REPS)
     n = int(cnt)
-    # ~30 f32 operations per window pixel (transcendentals counted as one),
-    # counted from orientation_hist.cu.
+    # 30 f32 operations per window cell (transcendentals counted as one): a
+    # property of the function (the plain version's arithmetic), whatever
+    # implements it.
     nbytes, ops, px = _window_work(
         flat, recs, n, lambda s: torch.floor(3.0 * (1.5 * s)), r, 30, 36)
     b_ms, b_by = bound(nbytes, ops)
+    res = dict(keypoints=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None, fill_ms=fill_ms,
+               count0_ms=count0_ms, frame_launches=1, frame_ms=ms,
+               frame_bound_ms=b_ms)
+    clock_mhz = max_sm_clock_mhz()
+    libs = {"": str(cuda_lib._lib_path("orientation_hist"))}
+    if parent is not None:
+        libs["parent "] = str(cuda_lib.BUILD_DIR
+                              / "parent_orientation_hist.so")
+    for who, lib in libs.items():
+        loop = sass_loop(lib, "orientation_hist_kernel")
+        if loop is None:
+            print(f"orientation_hist {who}issue floor: not measured (no "
+                  "cuobjdump or no loop found)", flush=True)
+            continue
+        per_cell = loop[0] / loop[1]
+        floor_ms = px * per_cell / (SMS * 128 * clock_mhz * 1e6) * 1e3
+        res[f"{who.strip() or 'new'}_issue_floor_ms"] = floor_ms
+        print(f"orientation_hist {who}issue floor: {px} cells x "
+              f"{per_cell:.1f} lane instructions a cell (SASS loop of "
+              f"{loop[0]} instructions, {loop[1]} cells) / ({SMS} SMs x 128 "
+              f"lanes x {clock_mhz:.0f} MHz) = {floor_ms:.4f} ms", flush=True)
+    if parent is not None:
+        old = parent.orientation_hist(flat, recs, cnt, r)
+        new = backhalf.orientation_hist(flat, recs, cnt, ori_radius=r)
+        d = (old - new).abs().max().item()
+        check(d <= 1e-4, f"parent orientation_hist differs from this one by "
+              f"{d}")
+        res["ms"], res["parent_ms"] = ab_ms(
+            lambda: backhalf.orientation_hist(flat, recs, cnt, ori_radius=r),
+            lambda: parent.orientation_hist(flat, recs, cnt, r))
+        res["frame_ms"] = res["ms"]
     print(f"orientation_hist keypoints={n} cells={px} bytes={nbytes} "
-          f"err={err:.3g} "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
-          f"({b_by})", flush=True)
-    return dict(keypoints=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                frame_launches=1, frame_ms=ms, frame_bound_ms=b_ms)
+          f"err={err:.3g} ms={res['ms']:.4f} (at count 0 {count0_ms:.4f}; "
+          f"a zero fill of the output {fill_ms:.4f}) plain_ms="
+          f"{plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by})"
+          + (f" parent_ms={res['parent_ms']:.4f}" if parent is not None
+             else ""), flush=True)
+    return res
 
 
 def descriptor_gate(flat, recs, cnt, r: int, vl: bool, what: str = ""):
@@ -628,10 +807,7 @@ def match_bounds(na: int, nb: int, capacity: int):
     rate."""
     b_ms, b_by = bound(128 * (na + nb) + 4 * 4 * capacity + 2 * 4,
                        2 * 128 * na * nb, INT8_OPS_PER_S)
-    clock_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0])
+    clock_mhz = max_sm_clock_mhz()
     dp4a_ms = (na * nb * 32 / (SMS * DP4A_PER_CLOCK_PER_SM * clock_mhz * 1e6)
                * 1e3)
     return b_ms, b_by, dp4a_ms
@@ -991,9 +1167,9 @@ def profile_frames(img: np.ndarray, frames: int = 3) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="also time the blur, frontend, descriptor and "
-                         "matcher kernels of the checkout at DIR, in turns "
-                         "with these")
+                    help="also time the blur, frontend, orientation-"
+                         "histogram, descriptor and matcher kernels of the "
+                         "checkout at DIR, in turns with these")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1054,7 +1230,7 @@ def main() -> int:
     rows = {
         "blur_dog": check_blur(cap, parent),
         "frontend": check_frontend(cap, parent),
-        "orientation_hist": check_orientation_hist(cap),
+        "orientation_hist": check_orientation_hist(cap, parent),
         "descriptor": check_descriptor(cap, parent),
     }
     del cap

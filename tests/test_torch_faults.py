@@ -5,7 +5,9 @@
   ``torch.cuda.device`` and ``torch.cuda.current_stream`` are stubbed, and
   ``use_kernel`` is forced on, so a CPU tensor takes the launch path.
 * The descriptor's output carries the kernel's work counter after its
-  rows, as ``csrc/descriptor.cu`` expects.
+  rows, as ``csrc/descriptor.cu`` expects; the orientation histogram's is
+  the K x 36 rows alone, which ``csrc/orientation_hist.cu`` writes in
+  full.
 * ``SiftInstance.detect_features`` and ``match_features`` turn any failure
   other than invalid input into ``DeviceError`` plus
   ``on_error(Result.DEVICE_ERROR)``, as the JAX instance does for the same
@@ -13,6 +15,7 @@
 """
 
 import contextlib
+import ctypes
 
 import numpy as np
 import pytest
@@ -143,6 +146,40 @@ def test_descriptor_output_holds_the_work_counter(monkeypatch):
     assert args[5:8] == (3, 4, 0)
     whole = torch.empty(0).set_(desc.untyped_storage(), 0, (3 * 128 + 1,))
     assert not whole.any() and whole.view(torch.int32)[-1].item() == 0
+
+
+@pytest.mark.parametrize("capacity", [3, 0])
+def test_orientation_output_is_what_the_kernel_writes(capacity, monkeypatch):
+    """The histogram's C entry point gets a K x 36 float output of its own
+    and writes every row (``csrc/orientation_hist.cu`` zeroes the rows past
+    the count, so there is no fill and no work counter): the stub writes a
+    pattern through the pointer, and the helper returns exactly it, row
+    major."""
+    g = _Guards()
+    monkeypatch.setattr(torch.cuda, "device", g.device)
+    monkeypatch.setattr(torch.cuda, "current_stream", g.current_stream)
+    seen = []
+    pattern = np.arange(capacity * 36, dtype=np.float32) + 0.5
+
+    def fn(*args):
+        seen.append(args)
+        out = (ctypes.c_float * (args[5] * 36)).from_address(args[4])
+        ctypes.memmove(out, pattern.ctypes.data, pattern.nbytes)
+        return 0
+    flat, recs = torch.zeros(120), _records(capacity)
+    count = torch.tensor(2, dtype=torch.int32)
+    hist = backhalf._launch_orientation_hist(fn, flat, recs, count, 4,
+                                             "orientation_hist")
+    (args,) = seen
+    assert len(args) == len(backhalf._HIST_ARGTYPES)
+    assert args[:4] == (flat.data_ptr(), recs.base.data_ptr(),
+                        recs.rec.data_ptr(), count.data_ptr())
+    assert args[5:7] == (capacity, 4) and args[7] == 0  # the stream
+    assert hist.shape == (capacity, 36) and hist.dtype == torch.float32
+    assert hist.is_contiguous() and hist.storage_offset() == 0
+    assert args[4] == hist.untyped_storage().data_ptr()
+    assert hist.untyped_storage().nbytes() == pattern.nbytes
+    np.testing.assert_array_equal(hist.numpy().ravel(), pattern)
 
 
 def test_launch_raises_on_a_kernel_error(monkeypatch):

@@ -11,9 +11,11 @@ Wrappers:
   version :func:`.descriptor.raw_descriptors`.
 
 Both read the live count from device memory, so the count never crosses
-to the host: the histogram kernel launches at its static capacity, the
-descriptor kernel as a persistent grid that takes pairs from a work
-counter up to the count.
+to the host: each launches as a persistent grid sized to the card that
+takes keypoints (pairs) up to the count. The histogram kernel writes
+every row of its output, those past the count as zeros; the descriptor
+kernel takes pairs from a work counter held after the rows of its
+zero-filled output.
 
 :func:`run_backhalf` is the port of ``pallas_backhalf.run_atlas`` as plain
 PyTorch at full capacity: one record per keypoint with sigma-scaled
@@ -43,7 +45,7 @@ from .patches import (REC_ANGLE, REC_COLS, SampleRecords,
 
 
 def _check_records(flat: torch.Tensor, recs: SampleRecords,
-                   count: torch.Tensor) -> int:
+                   count: torch.Tensor) -> None:
     cuda_lib.require(flat, "flat", torch.float32, 1)
     cuda_lib.require(recs.base, "base", torch.int64, 1)
     cuda_lib.require(recs.rec, "rec", torch.float32, 2)
@@ -55,7 +57,25 @@ def _check_records(flat: torch.Tensor, recs: SampleRecords,
     for t in (recs.base, recs.rec, count):
         if t.device != flat.device:
             raise ValueError("records and pyramid must share a device")
-    return cap
+
+
+# vks_orientation_hist(flat, base, rec, count, hist, capacity, max_radius,
+# stream)
+_HIST_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+
+def _launch_orientation_hist(fn, flat: torch.Tensor, recs: SampleRecords,
+                             count: torch.Tensor, ori_radius: int,
+                             name: str) -> torch.Tensor:
+    """Call the histogram entry point ``fn`` into a new (K, 36) output and
+    return it. The output is not filled: ``csrc/orientation_hist.cu``
+    writes every row, those past the count as zeros."""
+    hist = torch.empty((recs.rec.shape[0], NB_ORI_HIST_BINS),
+                       dtype=torch.float32, device=flat.device)
+    cuda_lib.launch(fn, flat, name, flat.data_ptr(), recs.base.data_ptr(),
+                    recs.rec.data_ptr(), count.data_ptr(), hist.data_ptr(),
+                    hist.shape[0], ori_radius)
+    return hist
 
 
 def orientation_hist(flat: torch.Tensor, recs: SampleRecords,
@@ -65,15 +85,11 @@ def orientation_hist(flat: torch.Tensor, recs: SampleRecords,
     :func:`.orientation.raw_histograms`."""
     if not cuda_lib.use_kernel(flat):
         return raw_histograms(flat, recs, count, ori_radius=ori_radius)
-    cap = _check_records(flat, recs, count)
-    hist = torch.zeros((cap, NB_ORI_HIST_BINS), dtype=torch.float32,
-                       device=flat.device)
-    fn = cuda_lib.entry("orientation_hist", "vks_orientation_hist",
-                        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                                 ctypes.c_void_p])
-    cuda_lib.launch(fn, flat, "orientation_hist", flat.data_ptr(),
-                    recs.base.data_ptr(), recs.rec.data_ptr(),
-                    count.data_ptr(), hist.data_ptr(), cap, ori_radius)
+    _check_records(flat, recs, count)
+    hist = _launch_orientation_hist(
+        cuda_lib.entry("orientation_hist", "vks_orientation_hist",
+                       _HIST_ARGTYPES), flat, recs, count, ori_radius,
+        "orientation_hist")
     orientation_hist.launches += 1
     return hist
 

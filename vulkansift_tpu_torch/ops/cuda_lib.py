@@ -44,10 +44,11 @@ SOURCES = ("blur_dog", "frontend", "orientation_hist", "descriptor",
            "match_2nn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-# Built with --fmad=false: the blur and the frontend's walk code reproduce
-# the plain versions' float rounding, which a fused multiply-add would
-# change (the histogram and the integer matcher are kept as they were
-# measured). The descriptor, held to a u8 tolerance, contracts freely.
+# Built with --fmad=false: the blur, the frontend's walk code and the
+# histogram's per-cell terms reproduce the plain versions' float rounding,
+# which a fused multiply-add would change (the integer matcher is kept as
+# it was measured). The descriptor, held to a u8 tolerance, contracts
+# freely.
 NO_FMAD = ("blur_dog", "frontend", "orientation_hist", "match_2nn")
 
 
