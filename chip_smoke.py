@@ -28,8 +28,9 @@
    and 1. Each kernel is timed on the device (CUDA events around calls
    queued behind a device-side sleep) and summed over its launches of a
    frame at their own shapes; the histogram also at count 0, beside a
-   zero fill of its output and its instruction-issue floor (the SASS
-   loop's instructions a cell, by ``cuobjdump``). Then one
+   zero fill of its output and an estimate of its instruction-issue floor
+   (a static count of the SASS loop's instructions a cell, by
+   ``cuobjdump``). Then one
    ``detect_features`` at
    ``nb_scales_per_octave=15`` on a 640x480 frame against the all-plain
    pipeline.
@@ -244,17 +245,14 @@ class Parent:
         return code, counts
 
     def orientation_hist(self, flat, recs, count, radius: int):
-        # The older design's layout: a zero-filled output whose rows past
-        # the count its kernel leaves as they are (the current kernel
-        # writes every row, so its output needs no fill).
-        hist = torch.zeros((recs.rec.shape[0], NB_ORI_HIST_BINS),
-                           device=flat.device)
-        cuda_lib.launch(self.fns["orientation_hist"], flat,
-                        "parent orientation_hist", flat.data_ptr(),
-                        recs.base.data_ptr(), recs.rec.data_ptr(),
-                        count.data_ptr(), hist.data_ptr(), hist.shape[0],
-                        radius)
-        return hist
+        # A zero-filled output, as the older wrapper gave its kernel, which
+        # leaves the rows past the count alone (the current one writes
+        # them).
+        return backhalf._launch_orientation_hist(
+            self.fns["orientation_hist"], flat, recs, count, radius,
+            "parent orientation_hist",
+            hist=torch.zeros((recs.rec.shape[0], NB_ORI_HIST_BINS),
+                             device=flat.device))
 
     def descriptor(self, flat, recs, count, radius: int, vlfeat: bool):
         return backhalf._launch_descriptor(self.fns["descriptor"], flat, recs,
@@ -532,7 +530,10 @@ def sass_loop(lib: str, kernel: str, marker: str = "MUFU.EX2"):
     library ``lib`` whose body holds ``marker``: the SASS (``cuobjdump
     -sass``) from a backward branch's target to the branch. With one
     ``expf`` a cell, the MUFU.EX2 count is the cells an (unrolled) body
-    handles. None when cuobjdump is missing or no such loop exists."""
+    handles. A static count: instructions on branches that a cell does not
+    take count too, so the issue floor built on it is an estimate, not a
+    count of issued instructions. None when cuobjdump is missing or no
+    such loop exists."""
     tool = Path(cuda_lib.nvcc_path()).parent / "cuobjdump"
     if not tool.exists():
         return None
@@ -563,19 +564,19 @@ def sass_loop(lib: str, kernel: str, marker: str = "MUFU.EX2"):
 def hist_gate(flat, recs, cnt, r: int, what: str, bar: float = 1e-4):
     """Kernel vs plain version on one set of records: every bin within
     ``bar``, rows past the count zero, two launches equal byte for byte.
-    The first launch gets an output block that held NaNs (the caching
-    allocator hands back the block just freed), so the rows past the count
-    are zero because the kernel wrote them. Returns the max abs error."""
-    poison = torch.full((recs.rec.shape[0], NB_ORI_HIST_BINS), math.nan,
-                        device=flat.device)
-    ptr = poison.data_ptr()
-    del poison
-    h_k = backhalf.orientation_hist(flat, recs, cnt, ori_radius=r)
-    check(h_k.data_ptr() == ptr, f"orientation_hist {what}: the output did "
-          "not reuse the NaN-filled block")
-    h_2 = backhalf.orientation_hist(flat, recs, cnt, ori_radius=r)
-    check(torch.equal(h_k.view(torch.int32), h_2.view(torch.int32)),
-          f"orientation_hist {what}: two launches differ")
+    Both launches write into outputs filled with NaN here, so the rows past
+    the count are zero because the kernel wrote them; the wrapper's own
+    output must hold the same bytes. Returns the max abs error."""
+    fn = cuda_lib.entry("orientation_hist", "vks_orientation_hist",
+                        backhalf._HIST_ARGTYPES)
+    h_k, h_2 = (backhalf._launch_orientation_hist(
+        fn, flat, recs, cnt, r, "orientation_hist",
+        hist=torch.full((recs.rec.shape[0], NB_ORI_HIST_BINS), math.nan,
+                        device=flat.device)) for _ in range(2))
+    h_w = backhalf.orientation_hist(flat, recs, cnt, ori_radius=r)
+    for other, who in ((h_2, "two launches"), (h_w, "the wrapper")):
+        check(torch.equal(h_k.view(torch.int32), other.view(torch.int32)),
+              f"orientation_hist {what}: {who} differ")
     h_p = orientation.raw_histograms(flat, recs, cnt, ori_radius=r)
     err = (h_k - h_p).abs().max().item()
     n = max(int(cnt), 0)
@@ -583,8 +584,8 @@ def hist_gate(flat, recs, cnt, r: int, what: str, bar: float = 1e-4):
     check(not h_k[n:].any(), f"orientation_hist {what}: a row past the "
           "count is not zero")
     print(f"orientation_hist {what} keypoints={n} err={err:.3g} (bar "
-          f"{bar:.3g}); two launches equal; rows past the count zero",
-          flush=True)
+          f"{bar:.3g}); two launches and the wrapper equal; rows past the "
+          "count zero", flush=True)
     return err
 
 
@@ -622,8 +623,8 @@ def check_orientation_hist(cap: dict, parent) -> dict:
     on the pyramid at 1/16 and 1/256 of its contrast with the bar scaled to
     match, at counts 0 and 1, and on ``hist_edge_records`` at the largest
     radius of nb_scales_per_octave=1. Timed at the frame's count and at
-    count 0, beside a zero fill of its output, its bound and its
-    instruction-issue floor."""
+    count 0, beside a zero fill of its output, its bound and an estimate
+    of its instruction-issue floor (``sass_loop``)."""
     flat, recs, cnt = cap["flat"], cap["hist_records"], cap["hist_count"]
     r = cap["ori_radius"]
     err = hist_gate(flat, recs, cnt, r, "frame")
@@ -670,16 +671,17 @@ def check_orientation_hist(cap: dict, parent) -> dict:
     for who, lib in libs.items():
         loop = sass_loop(lib, "orientation_hist_kernel")
         if loop is None:
-            print(f"orientation_hist {who}issue floor: not measured (no "
-                  "cuobjdump or no loop found)", flush=True)
+            print(f"orientation_hist {who}static issue floor: not measured "
+                  "(no cuobjdump or no loop found)", flush=True)
             continue
         per_cell = loop[0] / loop[1]
         floor_ms = px * per_cell / (SMS * 128 * clock_mhz * 1e6) * 1e3
         res[f"{who.strip() or 'new'}_issue_floor_ms"] = floor_ms
-        print(f"orientation_hist {who}issue floor: {px} cells x "
-              f"{per_cell:.1f} lane instructions a cell (SASS loop of "
-              f"{loop[0]} instructions, {loop[1]} cells) / ({SMS} SMs x 128 "
-              f"lanes x {clock_mhz:.0f} MHz) = {floor_ms:.4f} ms", flush=True)
+        print(f"orientation_hist {who}static issue floor: {px} cells x "
+              f"{per_cell:.1f} lane instructions a cell (a static count of "
+              f"the SASS loop's {loop[0]} instructions over its {loop[1]} "
+              f"cells) / ({SMS} SMs x 128 lanes x {clock_mhz:.0f} MHz) = "
+              f"{floor_ms:.4f} ms", flush=True)
     if parent is not None:
         old = parent.orientation_hist(flat, recs, cnt, r)
         new = backhalf.orientation_hist(flat, recs, cnt, ori_radius=r)

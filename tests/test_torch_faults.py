@@ -182,6 +182,35 @@ def test_orientation_output_is_what_the_kernel_writes(capacity, monkeypatch):
     np.testing.assert_array_equal(hist.numpy().ravel(), pattern)
 
 
+def test_orientation_launch_into_a_given_output(monkeypatch):
+    """A caller may hand the helper its own K x 36 output (a zero-filled one
+    for kernels that leave the rows past the count alone, a NaN-filled one
+    to see that the kernel writes them): the entry point gets that very
+    buffer, and an output of another shape, type or layout is refused
+    before any launch."""
+    g = _Guards()
+    monkeypatch.setattr(torch.cuda, "device", g.device)
+    monkeypatch.setattr(torch.cuda, "current_stream", g.current_stream)
+    seen = []
+
+    def fn(*args):
+        seen.append(args)
+        return 0
+    flat, recs = torch.zeros(120), _records(3)
+    count = torch.tensor(2, dtype=torch.int32)
+    mine = torch.full((3, 36), float("nan"))
+    out = backhalf._launch_orientation_hist(fn, flat, recs, count, 4,
+                                            "orientation_hist", hist=mine)
+    assert out is mine and seen[0][4] == mine.data_ptr()
+    for bad in (torch.zeros((4, 36)),
+                torch.zeros((3, 36), dtype=torch.float64),
+                torch.zeros((36, 3)).t()):
+        with pytest.raises(ValueError, match="hist"):
+            backhalf._launch_orientation_hist(fn, flat, recs, count, 4,
+                                              "orientation_hist", hist=bad)
+    assert len(seen) == 1
+
+
 def test_launch_raises_on_a_kernel_error(monkeypatch):
     g = _Guards()
     monkeypatch.setattr(torch.cuda, "device", g.device)

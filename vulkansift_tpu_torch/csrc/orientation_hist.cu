@@ -14,9 +14,9 @@
 // --fmad=false keeps their rounding, so each term rounds as the plain
 // version's does and only the order of the sum differs.
 //
-// Bound on the H100: the instructions a cell issues (~130, over half of
-// them atan2f, expf and sqrtf) more than the window bytes, which are
-// mostly L1/L2 hits. Design:
+// Bound on the H100: the instructions a cell issues (~140 in the SASS
+// loop, a static count; over half of them atan2f, expf and sqrtf) more
+// than the window bytes, which are mostly L1/L2 hits. Design:
 //  * a persistent grid sized to the card (SMs x 10 blocks of 4 warps,
 //    fewer for a small capacity), not to the capacity. One warp owns one
 //    keypoint at a time and takes keypoints g, g + G, ... up to the live
@@ -114,9 +114,6 @@ __device__ __forceinline__ void add_window(const float* __restrict__ flat,
   const int rstep = (int)(32.5f * rcp), cstep = 32 - rstep * ew;
   const int row = (int)(((float)lane + 0.5f) * rcp), c = lane - row * ew;
   const float* img = flat + base + (long long)(cy + y0) * w + (cx + x0);
-  // Keep the box's address in registers: each tap is then one 32-bit
-  // offset from it, not a 64-bit sum rebuilt per cell.
-  asm("mov.b64 %0, %0;" : "+l"(img));
   int off = row * w + c;
   const int ostep = rstep * w + cstep, owrap = w - ew;
   float dx = (float)(x0 + c), dy = (float)(y0 + row);

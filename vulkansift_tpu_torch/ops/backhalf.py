@@ -65,13 +65,20 @@ _HIST_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def _launch_orientation_hist(fn, flat: torch.Tensor, recs: SampleRecords,
-                             count: torch.Tensor, ori_radius: int,
-                             name: str) -> torch.Tensor:
-    """Call the histogram entry point ``fn`` into a new (K, 36) output and
-    return it. The output is not filled: ``csrc/orientation_hist.cu``
-    writes every row, those past the count as zeros."""
-    hist = torch.empty((recs.rec.shape[0], NB_ORI_HIST_BINS),
-                       dtype=torch.float32, device=flat.device)
+                             count: torch.Tensor, ori_radius: int, name: str,
+                             hist: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Call the histogram entry point ``fn`` into ``hist`` and return it: a
+    (K, 36) float32 output, by default a new one that is not filled,
+    because ``csrc/orientation_hist.cu`` writes every row, those past the
+    count as zeros."""
+    shape = (recs.rec.shape[0], NB_ORI_HIST_BINS)
+    if hist is None:
+        hist = torch.empty(shape, dtype=torch.float32, device=flat.device)
+    elif (hist.shape != shape or hist.dtype != torch.float32
+          or hist.device != flat.device or not hist.is_contiguous()):
+        raise ValueError(f"hist: expected contiguous float32 {shape} on "
+                         f"{flat.device}")
     cuda_lib.launch(fn, flat, name, flat.data_ptr(), recs.base.data_ptr(),
                     recs.rec.data_ptr(), count.data_ptr(), hist.data_ptr(),
                     hist.shape[0], ori_radius)
