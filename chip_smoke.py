@@ -46,17 +46,46 @@
    Lowe-0.75 cross-checked matches must land within 1.5 px of the known
    translation, and the downloaded bytes must equal those of the same
    matching with the plain version.
-6. Prints the per-frame kernel sums and the kernel table as JSON lines,
-   the card line, and as the last line ``{"ok": true, "device": {...}}``,
-   after a short
-   torch.profiler breakdown of three frames (device busy time, idle share,
-   the kernels that take the most device time).
+6. A short torch.profiler breakdown of three frames (device busy time,
+   idle share, the kernels that take the most device time).
+7. Drives the later paths, each with the launch counters set to 0 just
+   before and read just after:
+   - ``SiftDetector`` (the staged detector) at the headline frame: wall
+     ms and launches a detect, then its gates against ``make_detect_fn``
+     (lost 0 on both, the same count, sorted (x, y, sigma, orientation)
+     within 1e-5, descriptors equal after a lexsort), at 640x480 if its
+     per-octave capacities clamp at 1536x1024;
+   - ``start_trace`` / ``stop_trace`` around two detects and a match: the
+     Chrome trace must name the five kernels;
+   - in a process group of world size 1 (NCCL, ``file://`` store): dp
+     detect of two frames bit-equal to two single detects, the ring
+     matcher at 16384x16384 and the one-card 4- and 3-shard folds at
+     count_b 16001 (ties on the kernel's and the shards' edges) bit-equal
+     to ``match_2nn_fused``, and one ``measure_dp_scaling`` point;
+   - SfM on a synthetic scene (8 cameras, 4096 points, 0.3 px noise):
+     ``reconstruct_sequence`` on the card (final cost < 1 px^2, ATE <
+     0.05, relative rotations < 1 degree) and against its CPU run (poses
+     within 1e-3), ``make_distributed_ba`` against ``bundle_adjust``, and
+     the times of the reconstruction, RANSAC a pair, the 8-point SVDs and
+     one BA iteration.
+8. Prints the per-frame kernel sums, the launches by path and the kernel
+   table (launches summed over every path) as JSON lines, the total
+   seconds, the card line, and as the last line ``{"ok": true, "device":
+   {...}}``.
 
 ``--parent DIR`` also builds the blur, frontend, orientation-histogram,
 descriptor and matcher sources of the checkout at DIR (for example the
 parent commit, unpacked with ``git archive`` into the git-ignored
 ``build/``), checks that they agree with these and times them in turns
 with these.
+
+``--cards N`` runs instead the multi-device paths across N cards, one
+NCCL process each (``torch.multiprocessing``, a ``file://`` store under
+``build/``): on every rank the ring at 16384x16384 and at count_b 16001
+(ties on the kernel's and the shards' edges), dp detect of two frames a
+rank and the distributed BA of the SfM scene, each against the
+single-device result on that rank's card, their times, and
+``measure_dp_scaling`` at 1, 2, 4, ... cards.
 
 Any failure raises, so the script exits non-zero and prints no result
 line; it also exits non-zero when no CUDA card is available.
@@ -66,12 +95,14 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import math
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -86,6 +117,7 @@ from vulkansift_tpu_torch.ops import extract, gaussian
 from vulkansift_tpu_torch.ops import match as match_mod
 from vulkansift_tpu_torch.ops import orientation, patches
 from vulkansift_tpu_torch.ops.scale_space import upsample2x_linear
+from vulkansift_tpu_torch.parallel.scaling import card_info
 from vulkansift_tpu_torch.pipeline import make_detect_fn
 
 W, H = 1536, 1024
@@ -140,13 +172,6 @@ def bench_image(h: int, w: int, seed: int = 0) -> np.ndarray:
                 + fy * fx * small[yi + 1][:, xi + 1])
     img -= img.min()
     return (255 * img / img.max()).astype(np.uint8)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
 
 
 def median_ms(fn, reps: int) -> float:
@@ -1122,6 +1147,21 @@ def run_match(img: np.ndarray, parent) -> dict:
     return res
 
 
+def device_rows(prof, per: int) -> list:
+    """(name, device ms, calls) of every device operation in a
+    torch.profiler run, per one of ``per`` repetitions, largest first."""
+    rows = []
+    for evt in prof.key_averages():
+        if "CUDA" not in str(evt.device_type):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        rows.append((evt.key, us / 1e3 / per, evt.count / per))
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
 def profile_frames(img: np.ndarray, frames: int = 3) -> dict:
     """Where a frame's time goes: torch.profiler over ``frames`` detects.
     Device busy time is the sum of kernel (and copy) self times on the
@@ -1139,15 +1179,7 @@ def profile_frames(img: np.ndarray, frames: int = 3) -> dict:
             inst.detect_features(img, i % 2)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for evt in prof.key_averages():
-        if "CUDA" not in str(evt.device_type):
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0.0)
-        rows.append((evt.key, us / 1e3 / frames, evt.count / frames))
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(prof, frames)
     busy = sum(r[1] for r in rows)
     # Kernel names as the profiler gives them: "blur_dog_kernel<13>(...)"
     # with a "void " in front for a template, "frontend_kernel(...)".
@@ -1166,25 +1198,620 @@ def profile_frames(img: np.ndarray, frames: int = 3) -> dict:
     return res
 
 
+# -- the staged detector, traces, multi-device paths and SfM ------------------
+
+def zero_launches() -> None:
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    torch.cuda.synchronize()
+    return {k: w.launches for k, w in WRAPPERS.items()}
+
+
+def _sorted_rows(arr: np.ndarray) -> np.ndarray:
+    return np.asarray(sorted(zip(*[arr[f].tolist() for f in
+                                   ("x", "y", "sigma", "orientation")])))
+
+
+def _lexsorted_desc(arr: np.ndarray) -> np.ndarray:
+    return arr["descriptor"][np.lexsort((arr["orientation"], arr["y"],
+                                         arr["x"]))]
+
+
+def staged_gate(cfg, img: np.ndarray, what: str) -> dict:
+    """``SiftDetector`` against ``make_detect_fn`` on the card, with the
+    gates of tests/test_pipeline_parallel.py:31-52: lost 0 on both, the
+    same count, sorted (x, y, sigma, orientation) within 1e-5 and the
+    descriptors equal after a lexsort."""
+    h, w = img.shape
+    det = vt.SiftDetector(cfg, device="cuda")
+    staged = vt.features_to_numpy(det.detect(img, w, h)[0])
+    out = make_detect_fn(cfg, w, h, device="cuda")(img)
+    main = vt.features_to_numpy(out.features)
+    check(det.lost == 0 and int(out.lost) == 0,
+          f"staged {what}: lost {det.lost} (staged), {int(out.lost)} (main)")
+    check(len(staged) == len(main) > 0,
+          f"staged {what}: count {len(staged)} vs main {len(main)}")
+    row_err = float(np.abs(_sorted_rows(staged) - _sorted_rows(main)).max())
+    check(row_err <= 1e-5, f"staged {what}: sorted rows differ by {row_err}")
+    check(np.array_equal(_lexsorted_desc(staged), _lexsorted_desc(main)),
+          f"staged {what}: descriptors differ after a lexsort")
+    return dict(frame=what, count=len(staged), max_row_err=row_err)
+
+
+def run_staged(img: np.ndarray) -> dict:
+    """The staged detector at the headline configuration: wall ms and
+    kernel launches per detect, then its gate against the main path there,
+    or at 640x480 when its per-octave capacities clamp at 1536x1024."""
+    cfg = vt.SiftConfig(use_input_upsampling=True,
+                        max_nb_sift_per_buffer=CAPACITY)
+    det = vt.SiftDetector(cfg, device="cuda")
+    det.detect(img, W, H)
+    runs = 3
+    zero_launches()
+    wall = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, _, per = det.detect(img, W, H)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()
+    for k in DETECT_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched by SiftDetector")
+    res = dict(launches=launches,
+               launches_per_detect={k: v / runs for k, v in launches.items()},
+               wall_ms=wall, wall_ms_median=statistics.median(wall),
+               per_octave=per, lost_1536x1024=det.lost)
+    if det.lost == 0:
+        res["gate"] = staged_gate(cfg, img, f"{W}x{H}")
+    else:
+        res["finding"] = (f"per-octave section capacities clamp at {W}x{H}: "
+                          f"{det.lost} features lost, kept {per}")
+        res["gate"] = staged_gate(cfg, bench_image(480, 640, seed=3),
+                                  "640x480")
+    print("staged " + json.dumps(res), flush=True)
+    return res
+
+
+TRACE_SYMBOLS = {k: f"{k}_kernel" for k in WRAPPERS}
+FOLD_COUNT_B = 16001          # check_match's ragged B count
+
+
+def run_trace(img: np.ndarray) -> dict:
+    """``start_trace`` / ``stop_trace`` around the detects of a frame and
+    its translate and one ``match_features``; the Chrome trace must name
+    the five kernels."""
+    cfg = vt.SiftConfig(use_input_upsampling=True,
+                        max_nb_sift_per_buffer=CAPACITY)
+    inst = vt.SiftInstance(cfg, device="cuda")
+    img_b = shifted(img, *SHIFT)
+    inst.detect_features(img, 0)
+    inst.detect_features(img_b, 1)
+    inst.match_features(0, 1)
+    inst.get_matches_number()
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as d:
+        zero_launches()
+        inst.start_trace(d)
+        inst.detect_features(img, 0)
+        inst.detect_features(img_b, 1)
+        inst.match_features(0, 1)
+        inst.get_matches_number()
+        path = inst.stop_trace()
+        launches = read_launches()
+        text = Path(path).read_text()
+    missing = [s for s in TRACE_SYMBOLS.values() if s not in text]
+    check(not missing, f"trace lacks the kernels {missing}")
+    res = dict(launches=launches, trace_bytes=len(text),
+               symbols=sorted(TRACE_SYMBOLS.values()))
+    print("trace " + json.dumps(res), flush=True)
+    return res
+
+
+def _equal_matches(m, ref, rows: int) -> bool:
+    return all(torch.equal(getattr(m, f)[:rows].view(torch.int32),
+                           getattr(ref, f)[:rows].view(torch.int32))
+               for f in ("idx_a", "idx_b1", "idx_b2", "dist_a_b1",
+                         "dist_a_b2"))
+
+
+def shard_edge_ties(a: torch.Tensor, b: torch.Tensor, count_b: int,
+                    n: int) -> torch.Tensor:
+    """``b`` with the ties of :func:`edge_duplicates` and, across every edge
+    of ``n`` shards, a copy of one A row on both sides."""
+    b, _ = edge_duplicates(a, b, count_b)
+    nb_l = -(-b.shape[0] // n)
+    for s in range(1, n):
+        if s * nb_l < count_b:
+            b[s * nb_l - 1] = b[s * nb_l] = a[10 + s]
+    return b
+
+
+def run_multi_device(img: np.ndarray, mesh) -> dict:
+    """World size 1 (one card): dp detect of two frames against two single
+    detects, the ring at 16384x16384 and the one-card n-shard folds (n = 4
+    and 3, count_b 16001, ties on the kernel's and the shards' edges)
+    against ``match_2nn_fused``, bit for bit, and one scaling point."""
+    from vulkansift_tpu_torch import parallel
+    from vulkansift_tpu_torch.parallel import ring_match as rm
+    res = {}
+    cfg = vt.SiftConfig(use_input_upsampling=True,
+                        max_nb_sift_per_buffer=CAPACITY)
+    frames = np.stack([img, shifted(img, *SHIFT)])
+    dp = parallel.make_dp_detect_fn(cfg, W, H, mesh)
+    zero_launches()
+    out = dp(parallel.shard_batch(frames, mesh))
+    res["dp_launches"] = read_launches()
+    single = make_detect_fn(cfg, W, H, device="cuda")
+    for i, frame in enumerate(frames):
+        ref = single(frame)
+        got = vt.Features(**{f.name: getattr(out.features, f.name)[i]
+                             for f in dataclasses.fields(vt.Features)})
+        check(vt.features_to_numpy(got).tobytes()
+              == vt.features_to_numpy(ref.features).tobytes()
+              and int(out.lost[i]) == int(ref.lost)
+              and torch.equal(out.per_octave_counts[i],
+                              ref.per_octave_counts),
+              f"dp detect frame {i} differs from a single detect")
+    res["dp_counts"] = [int(c) for c in out.features.count]
+    print(f"rank {rank}: dp detect bit-equal", flush=True)
+    print(f"dp detect: 2 frames at {W}x{H} bit-equal to single detects, "
+          f"counts {res['dp_counts']}", flush=True)
+
+    n = MATCH_N
+    a, b = _rand_desc(0, n), _rand_desc(1, n)
+    ring = parallel.make_ring_match_fn(mesh)
+    zero_launches()
+    m = ring(a, n, b, n)
+    res["ring_launches"] = read_launches()
+    check(res["ring_launches"]["match_2nn"] == mesh.size(),
+          "ring: one matcher launch per shard expected")
+    ref = match_mod.match_2nn_fused(a, n, b, n)
+    check(_equal_matches(m, ref, n), "ring differs from match_2nn_fused")
+    res["ring_ms"] = median_ms(lambda: ring(a, n, b, n), PLAIN_REPS)
+    res["single_ms"] = median_ms(
+        lambda: match_mod.match_2nn_fused(a, n, b, n), PLAIN_REPS)
+    print(f"ring {n}x{n} (world 1) bit-equal to match_2nn_fused; "
+          f"{res['ring_ms']:.4f} ms vs {res['single_ms']:.4f} ms", flush=True)
+
+    cb = FOLD_COUNT_B
+    res["fold_launches"] = {}
+    for shards in (4, 3):
+        b2 = shard_edge_ties(a, b, cb, shards)
+        ref = match_mod.match_2nn_fused(a, n, b2, cb)
+        ap, bp = rm.pad_rows(a, shards), rm.pad_rows(b2, shards)
+        na_l, nb_l = ap.shape[0] // shards, bp.shape[0] // shards
+        zero_launches()
+        parts = []
+        for r in range(shards):
+            visit = [(bp[s * nb_l:(s + 1) * nb_l], s * nb_l)
+                     for s in ((r - i) % shards for i in range(shards))]
+            parts.append(rm.finish(rm.fold_shards(
+                ap[r * na_l:(r + 1) * na_l], visit, cb), r * na_l, n))
+        launches = read_launches()
+        check(launches["match_2nn"] == shards * shards,
+              f"{shards}-shard fold: {shards} launches a rank expected")
+        res["fold_launches"][shards] = launches
+        got = vt.Matches2NN(**{f: torch.cat([getattr(p, f) for p in parts])
+                               for f in ("idx_a", "idx_b1", "idx_b2",
+                                         "dist_a_b1", "dist_a_b2")},
+                            count=ref.count)
+        check(_equal_matches(got, ref, n),
+              f"{shards}-shard fold differs from match_2nn_fused")
+        print(f"{shards}-shard fold at count_b {cb} bit-equal to "
+              f"match_2nn_fused", flush=True)
+
+    zero_launches()
+    scaling = parallel.measure_dp_scaling(cfg, W, H, per_device_batch=2,
+                                          device_counts=[1], iters=3)
+    res["scaling_launches"] = read_launches()
+    res["scaling"] = scaling
+    print(f"scaling point: 1 device, {W}x{H}, 2 frames a device: "
+          f"{scaling['points'][0]['fps']:.3f} fps; across two or more cards: "
+          f"not measured (one card)", flush=True)
+    return res
+
+
+# The SfM scene: 8 cameras on an arc around 4096 points, ~0.3 px noise
+# (tests/test_sfm.py's _synthetic_scene at this size), about a 640x480
+# detect's feature count a frame.
+SFM_CAMS, SFM_POINTS, SFM_NOISE = 8, 4096, 0.3
+SFM_CAMERA = (500.0, 500.0, 320.0, 240.0)
+
+
+def sfm_scene(rng: np.random.Generator, points: int = SFM_POINTS):
+    """(poses (C, 6), points, cam_idx, pt_idx, uv) of the visible
+    observations, as tests/test_sfm.py's ``_synthetic_scene`` draws them."""
+    from vulkansift_tpu_torch.sfm import SE3, Camera
+    cam = Camera(*SFM_CAMERA)
+    pts = rng.uniform(-2, 2, (points, 3))
+    pts[:, 2] += 8.0
+    poses = np.asarray([[0.0, 0.08 * (i - SFM_CAMS / 2), 0.0,
+                         0.6 * i - 0.3 * SFM_CAMS, 0.05 * i, 0.0]
+                        for i in range(SFM_CAMS)], np.float32)
+    cam_idx, pt_idx, uvs = [], [], []
+    for c in range(SFM_CAMS):
+        se3 = SE3.from_tangent(torch.from_numpy(poses[c]))
+        uv = cam.project(se3.apply(torch.from_numpy(
+            pts.astype(np.float32)))).numpy()
+        idx = np.nonzero((uv[:, 0] > 10) & (uv[:, 0] < 630)
+                         & (uv[:, 1] > 10) & (uv[:, 1] < 470))[0]
+        cam_idx.append(np.full(len(idx), c))
+        pt_idx.append(idx)
+        uvs.append(uv[idx] + SFM_NOISE * rng.standard_normal((len(idx), 2)))
+    return (poses, pts.astype(np.float32),
+            np.concatenate(cam_idx).astype(np.int32),
+            np.concatenate(pt_idx).astype(np.int32),
+            np.concatenate(uvs).astype(np.float32))
+
+
+def sfm_features(rng, cam_idx, pt_idx, uv) -> list:
+    """Per-frame features with track-consistent u8 descriptors (+-2
+    jitter), as the JAX end-to-end test makes them."""
+    descs = rng.integers(0, 256, (SFM_POINTS, 128), dtype=np.uint8)
+    feats = []
+    for c in range(SFM_CAMS):
+        sel = cam_idx == c
+        f = np.zeros(int(sel.sum()), vt.FEATURE_DTYPE)
+        f["x"], f["y"] = uv[sel, 0], uv[sel, 1]
+        jit = rng.integers(-2, 3, (len(f), 128))
+        f["descriptor"] = np.clip(descs[pt_idx[sel]].astype(int) + jit, 0,
+                                  255)
+        feats.append(f)
+    return feats
+
+
+def rotation_errors_deg(est: np.ndarray, truth: np.ndarray) -> list:
+    """Angles between estimated and true relative rotations of consecutive
+    cameras."""
+    from vulkansift_tpu_torch.sfm import SE3
+    r_e = SE3.from_tangent(torch.from_numpy(est)).r.numpy()
+    r_t = SE3.from_tangent(torch.from_numpy(truth)).r.numpy()
+    out = []
+    for i in range(len(est) - 1):
+        d = (r_e[i + 1] @ r_e[i].T).T @ (r_t[i + 1] @ r_t[i].T)
+        out.append(float(np.degrees(np.arccos(np.clip(
+            (np.trace(d) - 1) / 2, -1, 1)))))
+    return out
+
+
+def sfm_ba_problem(rng, poses, pts, cam_idx, pt_idx, uv, dev,
+                   multiple: int = 1):
+    """tests/test_sfm.py's ``_perturbed_problem`` on this scene: poses
+    perturbed by 0.02 (the first kept), points by 0.1; the observations
+    padded with invalid ones to a multiple of ``multiple``."""
+    from vulkansift_tpu_torch.sfm import BAProblem, Camera
+    p0 = poses + 0.02 * rng.standard_normal(poses.shape).astype(np.float32)
+    p0[0] = poses[0]
+    x0 = pts + 0.1 * rng.standard_normal(pts.shape).astype(np.float32)
+    pad = (-len(uv)) % multiple
+
+    def t(x):
+        x = np.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1))
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return BAProblem(poses=torch.from_numpy(p0).to(dev),
+                     points=torch.from_numpy(x0).to(dev), cam_idx=t(cam_idx),
+                     pt_idx=t(pt_idx), uv=t(uv),
+                     valid=t(np.ones(len(uv), bool)),
+                     camera=Camera(*SFM_CAMERA))
+
+
+def run_sfm(mesh) -> dict:
+    """``reconstruct_sequence`` on the card (final cost < 1 px^2, ATE <
+    0.05, relative rotations < 1 degree) and against its CPU run with the
+    same seed (poses within 1e-3); ``make_distributed_ba`` (world size 1)
+    against ``bundle_adjust`` (the JAX test's bars); times of the
+    reconstruction, of RANSAC a pair, of the 8-point SVDs and of one BA
+    iteration."""
+    from vulkansift_tpu_torch import sfm
+    rng = np.random.default_rng(7)
+    poses, pts, cam_idx, pt_idx, uv = sfm_scene(rng)
+    feats = sfm_features(rng, cam_idx, pt_idx, uv)
+    cam = sfm.Camera(*SFM_CAMERA)
+    kw = dict(ratio=0.8, ransac_iters=256, ba_iters=30, seed=0)
+    sfm.reconstruct_sequence(feats, cam, device="cuda", **kw)  # warm-up
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = sfm.reconstruct_sequence(feats, cam, device="cuda", **kw)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    check(launches["match_2nn"] == SFM_CAMS - 1,
+          f"SfM: {launches['match_2nn']} matcher launches, expected "
+          f"{SFM_CAMS - 1}")
+    ate = sfm.absolute_trajectory_error(rec.poses, poses)
+    rot = rotation_errors_deg(rec.poses, poses)
+    check(rec.final_cost < 1.0, f"SfM final cost {rec.final_cost}")
+    check(ate < 0.05, f"SfM ATE {ate}")
+    check(max(rot) < 1.0, f"SfM relative rotation errors {rot} deg")
+    # Where the reconstruction's time goes on the card.
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sfm.reconstruct_sequence(feats, cam, device="cuda", **kw)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof, 1)
+    busy = sum(r[1] for r in rows)
+    breakdown = dict(wall_ms=prof_ms, device_busy_ms=busy,
+                     device_idle_share=1.0 - busy / prof_ms,
+                     device_ops=sum(r[2] for r in rows),
+                     top=[dict(name=r[0][:60], ms=r[1], calls=r[2])
+                          for r in rows[:10]])
+    print("sfm_profile " + json.dumps(breakdown), flush=True)
+    t0 = time.perf_counter()
+    rec_cpu = sfm.reconstruct_sequence(feats, cam, device="cpu", **kw)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    pose_err = float(np.abs(rec.poses - rec_cpu.poses).max())
+    check(pose_err <= 1e-3, f"SfM card vs CPU poses differ by {pose_err}")
+
+    # RANSAC of one pair (cameras 0 and 1, their common points) and the
+    # batched 8-point SVDs alone.
+    common = np.intersect1d(pt_idx[cam_idx == 0], pt_idx[cam_idx == 1])
+
+    def rays(c):
+        sel = cam_idx == c
+        order = np.searchsorted(pt_idx[sel], common)
+        return cam.unproject(torch.from_numpy(uv[sel][order]).cuda())
+
+    r1, r2 = rays(0), rays(1)
+    valid = torch.ones(len(common), dtype=torch.bool, device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    ransac_ms = median_ms(lambda: sfm.ransac_essential(
+        r1, r2, valid, gen, threshold=2e-5, nb_iters=256)[2].item(),
+        PLAIN_REPS)
+    idx = torch.randint(0, len(common), (256, 8), generator=gen).cuda()
+    svd_ms = median_ms(lambda: sfm.essential_8pt(r1[idx], r2[idx]),
+                       PLAIN_REPS)
+
+    problem = sfm_ba_problem(rng, poses, pts, cam_idx, pt_idx, uv, "cuda")
+
+    def ba(iters):
+        return float(sfm.bundle_adjust(problem, nb_iters=iters,
+                                       nb_cg_iters=20).final_cost)
+
+    ba_iter_ms = (median_ms(lambda: ba(11), 3) - median_ms(lambda: ba(1), 3)) \
+        / 10
+    single = sfm.bundle_adjust(problem, nb_iters=10, nb_cg_iters=20)
+    distributed = sfm.make_distributed_ba(mesh, nb_iters=10,
+                                          nb_cg_iters=20)(problem)
+    d_err = float((distributed.poses - single.poses).abs().max())
+    check(float(distributed.final_cost)
+          < 0.05 * float(distributed.initial_cost),
+          "distributed BA did not converge")
+    check(abs(float(distributed.final_cost) - float(single.final_cost))
+          <= 1e-2 * float(single.final_cost) and d_err <= 1e-3,
+          f"distributed BA vs bundle_adjust: poses {d_err}, costs "
+          f"{float(distributed.final_cost)} / {float(single.final_cost)}")
+    res = dict(launches=launches, frames=SFM_CAMS,
+               features=[len(f) for f in feats], observations=len(uv),
+               final_cost=rec.final_cost, initial_cost=rec.initial_cost,
+               ate=ate, rotation_err_deg=rot, card_vs_cpu_pose_err=pose_err,
+               reconstruction_ms=wall_ms, cpu_reconstruction_ms=cpu_ms,
+               ransac_pair_ms=ransac_ms, ransac_pair_points=len(common),
+               svd_8pt_256_ms=svd_ms, ba_iteration_ms=ba_iter_ms,
+               ba_observations=len(uv), distributed_ba_pose_err=d_err,
+               distributed_ba_final_cost=float(distributed.final_cost),
+               ba_final_cost=float(single.final_cost), profile=breakdown)
+    print("sfm " + json.dumps(res), flush=True)
+    return res
+
+
+def run_later_paths(img: np.ndarray) -> dict:
+    """The staged detector, the trace, then (one process group of world
+    size 1, NCCL over a file:// store) the multi-device paths and SfM."""
+    import torch.distributed as dist
+    from vulkansift_tpu_torch import parallel
+    res = dict(staged=run_staged(img), trace=run_trace(img))
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as d:
+        parallel.init_distributed(f"file://{d}/store", 1, 0, device="cuda")
+        try:
+            mesh = parallel.make_mesh(1)
+            res["multi_device"] = run_multi_device(img, mesh)
+            res["sfm"] = run_sfm(mesh)
+        finally:
+            dist.destroy_process_group()
+    return res
+
+
+# -- across cards (--cards N) --------------------------------------------------
+
+def cards_checks(rank: int, n: int, dev: torch.device, sizes: dict) -> dict:
+    """One rank's share of the multi-card run over a mesh of all ``n``
+    ranks: the ring at full and ragged counts (ties on the kernel's and
+    the shards' edges), dp detect of 2 frames a rank and the distributed
+    BA, each against the single-device result computed on this rank's own
+    device, then the dp scaling points."""
+    import torch.distributed as dist
+    from vulkansift_tpu_torch import parallel, sfm
+    mesh = parallel.make_mesh(n)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    res = dict(rank=rank, device=str(dev))
+
+    m_n = sizes["match_n"]
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.integers(0, 256, (m_n, 128), np.uint8)).to(dev)
+    b = torch.from_numpy(rng.integers(0, 256, (m_n, 128), np.uint8)).to(dev)
+    ring = parallel.make_ring_match_fn(mesh, device=dev)
+    na_l = -(-m_n // n)
+    rows = slice(rank * na_l, min((rank + 1) * na_l, m_n))
+    for what, bb, cb in (("full", b, m_n),
+                         ("ragged", shard_edge_ties(a, b, sizes["fold_cb"],
+                                                    n), sizes["fold_cb"])):
+        zero_launches()
+        m = ring(a, m_n, bb, cb)
+        sync()
+        launches = {k: w.launches for k, w in WRAPPERS.items()}
+        # (On the CPU, for a rehearsal, the plain version runs.)
+        check(launches["match_2nn"] == (n if dev.type == "cuda" else 0),
+              f"ring {what}: {launches['match_2nn']} launches, expected {n}")
+        ref = match_mod.match_2nn_fused(a, m_n, bb, cb)
+        k = rows.stop - rows.start
+        check(all(torch.equal(getattr(m, f)[:k].view(torch.int32),
+                              getattr(ref, f)[rows].view(torch.int32))
+                  for f in ("idx_a", "idx_b1", "idx_b2", "dist_a_b1",
+                            "dist_a_b2")),
+              f"ring {what}: rank {rank}'s rows differ from match_2nn_fused")
+        res[f"ring_{what}_launches"] = launches
+
+    def wall_ms(fn, reps: int = 5) -> float:
+        fn()
+        sync()
+        out = []
+        for _ in range(reps):
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    print(f"rank {rank}: ring bit-equal", flush=True)
+    res["ring_ms"] = wall_ms(lambda: ring(a, m_n, b, m_n))
+    res["single_match_ms"] = wall_ms(
+        lambda: match_mod.match_2nn_fused(a, m_n, b, m_n))
+
+    w, h = sizes["w"], sizes["h"]
+    cfg = vt.SiftConfig(use_input_upsampling=True,
+                        max_nb_sift_per_buffer=sizes["capacity"])
+    img = bench_image(h, w, seed=0)
+    frames = np.stack([shifted(img, i, i) for i in range(2 * n)])
+    dp = parallel.make_dp_detect_fn(cfg, w, h, mesh, device=dev)
+    out = dp(parallel.shard_batch(frames, mesh, device=dev))
+    single = make_detect_fn(cfg, w, h, device=dev)
+    for i in range(2):
+        ref = single(frames[2 * rank + i])
+        got = vt.Features(**{f.name: getattr(out.features, f.name)[i]
+                             for f in dataclasses.fields(vt.Features)})
+        check(vt.features_to_numpy(got).tobytes()
+              == vt.features_to_numpy(ref.features).tobytes(),
+              f"dp detect: rank {rank} frame {i} differs from a single "
+              f"detect")
+    res["dp_counts"] = [int(c) for c in out.features.count]
+    print(f"rank {rank}: dp detect bit-equal", flush=True)
+
+    poses, pts, cam_idx, pt_idx, uv = sfm_scene(np.random.default_rng(7),
+                                                sizes["sfm_points"])
+    problem = sfm_ba_problem(np.random.default_rng(8), poses, pts, cam_idx,
+                             pt_idx, uv, dev, multiple=n)
+    dist_ba = sfm.make_distributed_ba(mesh, nb_iters=10, nb_cg_iters=20,
+                                      device=dev)
+    r_d = dist_ba(problem)
+    r_s = sfm.bundle_adjust(problem, nb_iters=10, nb_cg_iters=20)
+    err = float((r_d.poses - r_s.poses).abs().max())
+    check(err <= 1e-3 and abs(float(r_d.final_cost) - float(r_s.final_cost))
+          <= 1e-2 * float(r_s.final_cost),
+          f"distributed BA on {n} ranks vs bundle_adjust: poses {err}")
+    print(f"rank {rank}: distributed BA agrees", flush=True)
+    res.update(ba_pose_err=err, ba_final_cost=float(r_d.final_cost),
+               ba_observations=len(uv),
+               distributed_ba_ms=wall_ms(lambda: dist_ba(problem), 3),
+               single_ba_ms=wall_ms(lambda: sfm.bundle_adjust(
+                   problem, nb_iters=10, nb_cg_iters=20), 3))
+
+    res["scaling"] = parallel.measure_dp_scaling(
+        cfg, w, h, per_device_batch=2,
+        device_counts=[k for k in (1, 2, 4, 8) if k <= n], iters=3,
+        device=dev)
+    return res
+
+
+def cards_rank(rank: int, n: int, work: str, device: str,
+               sizes: dict) -> None:
+    """Entry of one spawned rank: join the group (NCCL for ``"cuda"``,
+    gloo for ``"cpu"``), run :func:`cards_checks`, and rank 0 writes every
+    rank's result to ``work``/cards.json."""
+    import torch.distributed as dist
+    from vulkansift_tpu_torch import parallel
+    parallel.init_distributed(f"file://{work}/store", n, rank, device=device)
+    try:
+        dev = torch.device("cpu") if device == "cpu" else \
+            torch.device("cuda", torch.cuda.current_device())
+        res = cards_checks(rank, n, dev, sizes)
+        every = [None] * n
+        dist.all_gather_object(every, res)
+        if rank == 0:
+            Path(work, "cards.json").write_text(json.dumps(every))
+    finally:
+        dist.destroy_process_group()
+
+
+CARD_SIZES = dict(w=W, h=H, capacity=CAPACITY, match_n=MATCH_N,
+                  fold_cb=16001, sfm_points=SFM_POINTS)
+
+
+def run_cards(n: int, device: str = "cuda", sizes: dict = CARD_SIZES,
+              timeout: float = 600.0) -> list:
+    """The multi-device paths across ``n`` ranks, one spawned process
+    each; every rank's failure fails the run, and ranks still running
+    after ``timeout`` seconds are killed."""
+    import torch.multiprocessing as mp
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as work:
+        ctx = mp.spawn(cards_rank, args=(n, work, device, sizes), nprocs=n,
+                       join=False)
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"{n} ranks did not finish in {timeout} s")
+        every = json.loads(Path(work, "cards.json").read_text())
+    for r in every:
+        print("cards_rank " + json.dumps(r), flush=True)
+    pts = every[0]["scaling"]["points"]
+    print("cards_summary " + json.dumps(dict(
+        ranks=n, ring_ms=[r["ring_ms"] for r in every],
+        single_match_ms=[r["single_match_ms"] for r in every],
+        distributed_ba_ms=[r["distributed_ba_ms"] for r in every],
+        single_ba_ms=[r["single_ba_ms"] for r in every],
+        scaling=pts, cards=every[0]["scaling"]["cards"])), flush=True)
+    return every
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="also time the blur, frontend, orientation-"
                          "histogram, descriptor and matcher kernels of the "
                          "checkout at DIR, in turns with these")
+    ap.add_argument("--cards", type=int, metavar="N",
+                    help="instead: check the multi-device paths across N "
+                         "cards (one NCCL process each) against single-"
+                         "device results and time them")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     check(torch.cuda.device_count() >= 1, "no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = card_line()
+    card = card_info()[0]
     nvcc = subprocess.run([cuda_lib.nvcc_path(), "--version"], check=True,
                           capture_output=True, text=True).stdout
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} nvcc "
           f"{nvcc.strip().splitlines()[-1]}", flush=True)
+    if args.cards:
+        check(torch.cuda.device_count() >= args.cards,
+              f"--cards {args.cards}: {torch.cuda.device_count()} cards")
+        cuda_lib.build()
+        run_cards(args.cards)
+        print(f"total_seconds {time.perf_counter() - t_start:.1f}",
+              flush=True)
+        for line in card_info():
+            print(line, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     t0 = time.perf_counter()
     info = cuda_lib.build(verbose=True)
@@ -1244,14 +1871,25 @@ def main() -> int:
     res = run_slice(img)
     res_match = run_match(img, parent)
     profile_frames(img)
+    later = run_later_paths(img)
 
+    # Launches of every path's driven run, each counted from 0.
+    md = later["multi_device"]
+    paths = {"detect": res["launches"], "match": res_match["launches"],
+             "staged": later["staged"]["launches"],
+             "trace": later["trace"]["launches"],
+             "dp_detect": md["dp_launches"], "ring": md["ring_launches"],
+             **{f"fold_{n}": v for n, v in md["fold_launches"].items()},
+             "scaling": md["scaling_launches"],
+             "sfm": later["sfm"]["launches"]}
+    print("launches_by_path " + json.dumps(paths), flush=True)
     kernels = []
     for name, r in rows.items():
-        path = res_match if name == "match_2nn" else res
         kernels.append(dict(
             name=name, route="cuda",
             source=f"vulkansift_tpu_torch/csrc/{name}.cu",
-            replaces=REPLACES[name], launches=path["launches"][name],
+            replaces=REPLACES[name],
+            launches=sum(p.get(name, 0) for p in paths.values()),
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
@@ -1266,6 +1904,7 @@ def main() -> int:
         * res_match["kernel_bound_ms_at_counts"])
     print("per_frame " + json.dumps(frame), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"total_seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""The PyTorch port stands alone: importing it (and chip_smoke.py's
+"""The PyTorch port stands alone: importing it (every module, the staged
+detector, ``parallel`` and ``sfm`` included, and chip_smoke.py's
 module-level code) loads no JAX and nothing of the JAX package, and its
 entry points refuse to drop quietly to the CPU when there is no CUDA."""
 
@@ -17,6 +18,10 @@ from vulkansift_tpu_torch.ops import (backhalf, blur, cuda_lib, descriptor,
                                       extract, frontend, match, orientation,
                                       patches, scale_space)
 import vulkansift_tpu_torch.utils.logging
+import vulkansift_tpu_torch.detector
+from vulkansift_tpu_torch.parallel import dp, mesh, ring_match, scaling
+from vulkansift_tpu_torch.sfm import (bundle_adjustment, checkpoint, geometry,
+                                      metrics, pose_graph, reconstruction)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
@@ -26,8 +31,15 @@ print("BAD", bad)
 import torch
 assert not torch.cuda.is_available()
 from vulkansift_tpu_torch import DeviceError, SiftInstance, make_detect_fn
+cfg = vulkansift_tpu_torch.SiftConfig()
 for make in (lambda: SiftInstance(),
-             lambda: make_detect_fn(vulkansift_tpu_torch.SiftConfig(), 64, 64)):
+             lambda: make_detect_fn(cfg, 64, 64),
+             lambda: vulkansift_tpu_torch.SiftDetector(cfg),
+             lambda: dp.make_dp_detect_fn(cfg, 64, 64, None),
+             lambda: ring_match.make_ring_match_fn(None),
+             lambda: mesh.init_distributed("tcp://localhost:1", 1, 0),
+             lambda: reconstruction.reconstruct_sequence(
+                 [], geometry.Camera(1.0, 1.0, 0.0, 0.0))):
     try:
         make()
     except DeviceError:
@@ -49,6 +61,6 @@ def test_port_imports_no_jax_and_needs_cuda_or_cpu():
     assert res.returncode == 0, res.stderr
     lines = res.stdout.splitlines()
     assert "BAD []" in lines, res.stdout
-    assert lines.count("RAISED") == 2, res.stdout
+    assert lines.count("RAISED") == 7, res.stdout
     assert "BUILD RAISED" in lines, res.stdout
     assert "RUNTIME DEVICE_ERROR" in lines, res.stdout

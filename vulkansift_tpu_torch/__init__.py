@@ -4,7 +4,9 @@ SIFT detection (gaussian scale space, DoG extrema with subpixel
 refinement, orientation assignment, 128-D UBC/VLFeat descriptors), batched
 detect and brute-force 2-NN descriptor matching in PyTorch, behind the
 reference's instance API (``SiftInstance``: detect, match, feature and
-match transfers, scale-space debug downloads). The five kernels of the
+match transfers, scale-space debug downloads, traces), the staged debug
+detector (``SiftDetector``), multi-device detect and sharded matching
+(``parallel``) and the SfM back end (``sfm``). The five kernels of the
 detect and match paths are written by hand in CUDA for Hopper (``csrc/``).
 The package imports torch and numpy only; it keeps its own copies of what
 it shares with the JAX package.
@@ -15,6 +17,7 @@ there is none; ``device="cpu"`` runs every kernel's plain PyTorch version.
 
 from .config import (DESC_SIZE, DescriptorFormat, PyramidPrecision,
                      SiftConfig, from_reference_dict, get_default_config)
+from .detector import SiftDetector
 from .errors import (DeviceError, InvalidConfigError, InvalidInputError,
                      Result, VulkanSiftTpuError)
 from .instance import (SiftInstance, get_available_devices, load_runtime,
@@ -29,7 +32,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "DESC_SIZE", "DescriptorFormat", "PyramidPrecision", "SiftConfig",
-    "from_reference_dict", "get_default_config", "DeviceError",
+    "from_reference_dict", "get_default_config", "SiftDetector",
+    "DeviceError",
     "InvalidConfigError", "InvalidInputError", "Result",
     "VulkanSiftTpuError", "SiftInstance", "get_available_devices",
     "load_runtime", "unload_runtime", "DetectOutput", "make_detect_batched",

@@ -10,13 +10,15 @@ like the reference's fence waits; ``is_buffer_available`` polls without
 blocking. With ``config.retain_pyramid`` each buffer keeps the gaussian and
 DoG stacks of its last detect for the scale-space debug APIs.
 ``load_runtime``, ``unload_runtime`` and ``get_available_devices`` probe
-``torch.cuda``. The JAX package's XProf hooks (``start_trace`` /
-``stop_trace``) have no counterpart yet.
+``torch.cuda``. ``start_trace`` / ``stop_trace``, the JAX package's XProf
+hooks, run ``torch.profiler`` and write a Chrome trace.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -114,6 +116,7 @@ class SiftInstance:
             for _ in range(config.sift_buffer_count)]
         self._matches: Optional[Matches2NN] = None
         self._matches_count: Optional[int] = 0
+        self._trace: Optional[Tuple[torch.profiler.profile, str]] = None
         self._closed = False
 
     # -- lifecycle ------------------------------------------------------
@@ -318,3 +321,37 @@ class SiftInstance:
         """Parity: vksift_downloadDoGImage."""
         buf = self._check_buffer(buffer_id)
         return self._pyramid_level(buf.dogs, octave, scale)
+
+    # -- profiling hooks (the DebugPresenter analogue) --------------------
+    def start_trace(self, log_dir: str) -> None:
+        """Start a ``torch.profiler`` trace of CPU and, on a CUDA instance,
+        CUDA activity (parity: ``start_trace``, the JAX package's XProf
+        session in place of the reference's DebugPresenter frame
+        delimiters, vkenv/debug_presenter.c:139-185). :meth:`stop_trace`
+        writes it into ``log_dir``. Raises if a trace is running."""
+        if self._trace is not None:
+            raise RuntimeError("a trace is already running")
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        self._trace = (prof, log_dir)
+
+    def stop_trace(self) -> str:
+        """Stop the trace and write it into the ``log_dir`` given to
+        :meth:`start_trace` as a Chrome trace (JSON); returns its path.
+        Raises without a trace running, as ``jax.profiler.stop_trace``
+        does."""
+        if self._trace is None:
+            raise RuntimeError("No profile started")
+        prof, log_dir = self._trace
+        self._trace = None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(log_dir, exist_ok=True)
+        path = os.path.join(
+            log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        return path
