@@ -105,6 +105,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1357,7 +1358,6 @@ def run_multi_device(img: np.ndarray, mesh) -> dict:
                               ref.per_octave_counts),
               f"dp detect frame {i} differs from a single detect")
     res["dp_counts"] = [int(c) for c in out.features.count]
-    print(f"rank {rank}: dp detect bit-equal", flush=True)
     print(f"dp detect: 2 frames at {W}x{H} bit-equal to single detects, "
           f"counts {res['dp_counts']}", flush=True)
 
@@ -1410,8 +1410,8 @@ def run_multi_device(img: np.ndarray, mesh) -> dict:
     res["scaling_launches"] = read_launches()
     res["scaling"] = scaling
     print(f"scaling point: 1 device, {W}x{H}, 2 frames a device: "
-          f"{scaling['points'][0]['fps']:.3f} fps; across two or more cards: "
-          f"not measured (one card)", flush=True)
+          f"{scaling['points'][0]['fps']:.3f} fps; across cards: "
+          f"chip_smoke.py --cards N", flush=True)
     return res
 
 
@@ -1422,12 +1422,13 @@ SFM_CAMS, SFM_POINTS, SFM_NOISE = 8, 4096, 0.3
 SFM_CAMERA = (500.0, 500.0, 320.0, 240.0)
 
 
-def sfm_scene(rng: np.random.Generator, points: int = SFM_POINTS):
+def sfm_scene(rng: np.random.Generator, points: Optional[int] = None):
     """(poses (C, 6), points, cam_idx, pt_idx, uv) of the visible
-    observations, as tests/test_sfm.py's ``_synthetic_scene`` draws them."""
+    observations of ``points`` (default ``SFM_POINTS``) points, as
+    tests/test_sfm.py's ``_synthetic_scene`` draws them."""
     from vulkansift_tpu_torch.sfm import SE3, Camera
     cam = Camera(*SFM_CAMERA)
-    pts = rng.uniform(-2, 2, (points, 3))
+    pts = rng.uniform(-2, 2, (points or SFM_POINTS, 3))
     pts[:, 2] += 8.0
     poses = np.asarray([[0.0, 0.08 * (i - SFM_CAMS / 2), 0.0,
                          0.6 * i - 0.3 * SFM_CAMS, 0.05 * i, 0.0]
