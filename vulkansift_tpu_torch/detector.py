@@ -81,8 +81,8 @@ class SiftDetector:
         return ss, cands, codes, counts
 
     # -- S2: refine + orientations + per-octave pair clamp ----------------
-    def _stage2(self, ss, cands, codes, cand_counts: Sequence[int], oct_res,
-                caps):
+    def _stage2(self, ss, cands, codes, cand_counts: Sequence[int],
+                oct_res):
         cfg = self.config
         s = cfg.nb_scales_per_octave
         up = 1 if cfg.use_input_upsampling else 0
@@ -118,7 +118,7 @@ class SiftDetector:
         totals = torch.zeros(len(oct_res), dtype=torch.int64,
                              device=self.device).index_add_(
             0, kp["octave"][kidx].to(torch.int64), nori)
-        return dict(refined=refined, recs_k=recs_k, kidx=kidx, kp=kp,
+        return dict(recs_k=recs_k, kidx=kidx, kp=kp,
                     angles=ori.angles, cs=cs, start=cs - nori), totals
 
     # -- S3: descriptors + pack ------------------------------------------
@@ -187,8 +187,7 @@ class SiftDetector:
 
         ss, cands, codes, cand_counts = self._stage1(img, oct_res, caps)
         host_counts = [int(c) for c in cand_counts.cpu()]
-        st2, totals = self._stage2(ss, cands, codes, host_counts, oct_res,
-                                   caps)
+        st2, totals = self._stage2(ss, cands, codes, host_counts, oct_res)
         pair_totals = [int(t) for t in totals.cpu()]
         features, kept = self._stage3(ss, st2, pair_totals, caps)
         lost = sum(t - k for t, k in zip(pair_totals, kept))
