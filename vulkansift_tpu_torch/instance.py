@@ -326,7 +326,7 @@ class SiftInstance:
     def start_trace(self, log_dir: str) -> None:
         """Start a ``torch.profiler`` trace of CPU and, on a CUDA instance,
         CUDA activity (parity: ``start_trace``, the JAX package's XProf
-        session in place of the reference's DebugPresenter frame
+        trace in place of the reference's DebugPresenter frame
         delimiters, vkenv/debug_presenter.c:139-185). :meth:`stop_trace`
         writes it into ``log_dir``. Raises if a trace is running."""
         if self._trace is not None:

@@ -62,7 +62,8 @@ def make_mesh(n_devices: Optional[int] = None,
     """1-D mesh over ranks ``0 .. n_devices - 1`` of the process group
     (default: all of them), on the group's device type. Every rank of the
     group must call it; a rank outside the mesh gets one whose
-    ``get_coordinate()`` is None."""
+    ``get_coordinate()`` is None. (``init_device_mesh`` spans the whole
+    world, so a mesh over fewer ranks is built with ``DeviceMesh``.)"""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group; call "
                            "init_distributed first")

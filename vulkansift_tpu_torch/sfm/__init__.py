@@ -1,5 +1,5 @@
 """SfM back end: geometry, pose-graph optimisation, distributed bundle
-adjustment and a sequential reconstruction driver (port of
+adjustment and a sequential reconstruction pipeline (port of
 ``vulkansift_tpu/sfm``, float32 as there)."""
 
 from .geometry import (Camera, SE3, decompose_essential, essential_8pt,

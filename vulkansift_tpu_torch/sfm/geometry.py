@@ -2,7 +2,8 @@
 
 Port of ``vulkansift_tpu/sfm/geometry.py`` in float32. Every function
 takes leading batch dimensions where the JAX package vmaps it, so that
-RANSAC runs its hypotheses and the driver its tracks as one batch.
+RANSAC runs its hypotheses and the reconstruction its tracks as one
+batch.
 
 Conventions:
 * Rotations: axis-angle vectors ``w`` (3,) with ``R = exp([w]x)``;

@@ -1,9 +1,9 @@
-"""Small-scale sequential SfM driver: match -> initialise -> triangulate
+"""Small-scale sequential SfM: match -> initialise -> triangulate
 -> bundle adjust.
 
 Port of ``vulkansift_tpu/sfm/reconstruction.py``. The device work
 (matching, RANSAC, pose recovery, the pose graph, triangulation, BA) runs
-on the driver's device; on a card the pairwise matching is the matcher
+on the device given to it; on a card the pairwise matching is the matcher
 kernel (``csrc/match_2nn.cu`` through :func:`..ops.match.match_2nn_fused`).
 The track bookkeeping (union-find over matches) stays on the host in
 NumPy: it is pointer chasing with no parallel structure.
