@@ -105,7 +105,6 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
 
 import numpy as np
 import torch
@@ -1331,24 +1330,45 @@ def shard_edge_ties(a: torch.Tensor, b: torch.Tensor, count_b: int,
     return b
 
 
-def run_multi_device(img: np.ndarray, mesh) -> dict:
-    """World size 1 (one card): dp detect of two frames against two single
-    detects, the ring at 16384x16384 and the one-card n-shard folds (n = 4
-    and 3, count_b 16001, ties on the kernel's and the shards' edges)
-    against ``match_2nn_fused``, bit for bit, and one scaling point."""
-    from vulkansift_tpu_torch import parallel
-    from vulkansift_tpu_torch.parallel import ring_match as rm
-    res = {}
+def rank_ms(fn, reps: int = PLAIN_REPS) -> float:
+    """Median wall ms of ``fn`` on every rank of the process group, each
+    repetition started together after a barrier and ended by a sync."""
+    import torch.distributed as dist
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def multi_device_checks(mesh, dev: torch.device) -> dict:
+    """This rank's share of the multi-device paths over ``mesh`` (every one
+    of its n ranks calls it), each against the single-device result on this
+    rank's card: dp detect of 2 frames a rank at 1536x1024 against single
+    detects, bit for bit; the ring at 16384x16384 and at count_b 16001 with
+    ties on the kernel's and the shards' edges against ``match_2nn_fused``
+    on this rank's rows, bit for bit, with n matcher launches a rank;
+    ``make_distributed_ba`` against ``bundle_adjust`` (the JAX test's
+    bars); then the dp scaling points at 1, 2, 4, 8 ranks up to n."""
+    from vulkansift_tpu_torch import parallel, sfm
+    n, rank = mesh.size(), mesh.get_local_rank()
+    res = dict(rank=rank, device=str(dev))
     cfg = vt.SiftConfig(use_input_upsampling=True,
                         max_nb_sift_per_buffer=CAPACITY)
-    frames = np.stack([img, shifted(img, *SHIFT)])
-    dp = parallel.make_dp_detect_fn(cfg, W, H, mesh)
+    img = bench_image(H, W, seed=0)
+    frames = np.stack([shifted(img, i, i) for i in range(2 * n)])
+    dp = parallel.make_dp_detect_fn(cfg, W, H, mesh, device=dev)
     zero_launches()
-    out = dp(parallel.shard_batch(frames, mesh))
+    out = dp(parallel.shard_batch(frames, mesh, device=dev))
     res["dp_launches"] = read_launches()
-    single = make_detect_fn(cfg, W, H, device="cuda")
-    for i, frame in enumerate(frames):
-        ref = single(frame)
+    single = make_detect_fn(cfg, W, H, device=dev)
+    for i in range(2):
+        ref = single(frames[2 * rank + i])
         got = vt.Features(**{f.name: getattr(out.features, f.name)[i]
                              for f in dataclasses.fields(vt.Features)})
         check(vt.features_to_numpy(got).tobytes()
@@ -1356,28 +1376,83 @@ def run_multi_device(img: np.ndarray, mesh) -> dict:
               and int(out.lost[i]) == int(ref.lost)
               and torch.equal(out.per_octave_counts[i],
                               ref.per_octave_counts),
-              f"dp detect frame {i} differs from a single detect")
+              f"dp detect: rank {rank} frame {i} differs from a single "
+              f"detect")
     res["dp_counts"] = [int(c) for c in out.features.count]
-    print(f"dp detect: 2 frames at {W}x{H} bit-equal to single detects, "
-          f"counts {res['dp_counts']}", flush=True)
+    print(f"rank {rank}/{n}: dp detect of 2 frames at {W}x{H} bit-equal to "
+          f"single detects, counts {res['dp_counts']}", flush=True)
 
-    n = MATCH_N
-    a, b = _rand_desc(0, n), _rand_desc(1, n)
-    ring = parallel.make_ring_match_fn(mesh)
+    m_n = MATCH_N
+    a, b = _rand_desc(0, m_n), _rand_desc(1, m_n)     # on this rank's card
+    ring = parallel.make_ring_match_fn(mesh, device=dev)
+    na_l = -(-m_n // n)
+    rows = slice(rank * na_l, min((rank + 1) * na_l, m_n))
+    for what, bb, cb in (("full", b, m_n),
+                         ("ragged", shard_edge_ties(a, b, FOLD_COUNT_B, n),
+                          FOLD_COUNT_B)):
+        zero_launches()
+        m = ring(a, m_n, bb, cb)
+        launches = read_launches()
+        check(launches["match_2nn"] == n,
+              f"ring {what}: {launches['match_2nn']} launches, expected {n}")
+        ref = match_mod.match_2nn_fused(a, m_n, bb, cb)
+        check(all(torch.equal(getattr(m, f)[:rows.stop - rows.start]
+                              .view(torch.int32),
+                              getattr(ref, f)[rows].view(torch.int32))
+                  for f in ("idx_a", "idx_b1", "idx_b2", "dist_a_b1",
+                            "dist_a_b2")),
+              f"ring {what}: rank {rank}'s rows differ from match_2nn_fused")
+        res[f"ring_{what}_launches"] = launches
+    res["ring_ms"] = rank_ms(lambda: ring(a, m_n, b, m_n))
+    res["single_match_ms"] = rank_ms(
+        lambda: match_mod.match_2nn_fused(a, m_n, b, m_n))
+    print(f"rank {rank}/{n}: ring {m_n}x{m_n} (full and count_b "
+          f"{FOLD_COUNT_B}) bit-equal to match_2nn_fused; "
+          f"{res['ring_ms']:.4f} ms vs {res['single_match_ms']:.4f} ms",
+          flush=True)
+
+    poses, pts, cam_idx, pt_idx, uv = sfm_scene(np.random.default_rng(7))
+    problem = sfm_ba_problem(np.random.default_rng(8), poses, pts, cam_idx,
+                             pt_idx, uv, dev, multiple=n)
+    dist_ba = sfm.make_distributed_ba(mesh, nb_iters=10, nb_cg_iters=20,
+                                      device=dev)
+    r_d = dist_ba(problem)
+    r_s = sfm.bundle_adjust(problem, nb_iters=10, nb_cg_iters=20)
+    err = float((r_d.poses - r_s.poses).abs().max())
+    check(float(r_d.final_cost) < 0.05 * float(r_d.initial_cost),
+          "distributed BA did not converge")
+    check(err <= 1e-3 and abs(float(r_d.final_cost) - float(r_s.final_cost))
+          <= 1e-2 * float(r_s.final_cost),
+          f"distributed BA on {n} ranks vs bundle_adjust: poses {err}, costs "
+          f"{float(r_d.final_cost)} / {float(r_s.final_cost)}")
+    res.update(ba_pose_err=err, ba_final_cost=float(r_d.final_cost),
+               single_ba_final_cost=float(r_s.final_cost),
+               ba_observations=len(uv),
+               distributed_ba_ms=rank_ms(lambda: dist_ba(problem), 3),
+               single_ba_ms=rank_ms(lambda: sfm.bundle_adjust(
+                   problem, nb_iters=10, nb_cg_iters=20), 3))
+    print(f"rank {rank}/{n}: distributed BA agrees with bundle_adjust "
+          f"(poses {err:.3g})", flush=True)
+
     zero_launches()
-    m = ring(a, n, b, n)
-    res["ring_launches"] = read_launches()
-    check(res["ring_launches"]["match_2nn"] == mesh.size(),
-          "ring: one matcher launch per shard expected")
-    ref = match_mod.match_2nn_fused(a, n, b, n)
-    check(_equal_matches(m, ref, n), "ring differs from match_2nn_fused")
-    res["ring_ms"] = median_ms(lambda: ring(a, n, b, n), PLAIN_REPS)
-    res["single_ms"] = median_ms(
-        lambda: match_mod.match_2nn_fused(a, n, b, n), PLAIN_REPS)
-    print(f"ring {n}x{n} (world 1) bit-equal to match_2nn_fused; "
-          f"{res['ring_ms']:.4f} ms vs {res['single_ms']:.4f} ms", flush=True)
+    res["scaling"] = parallel.measure_dp_scaling(
+        cfg, W, H, per_device_batch=2,
+        device_counts=[k for k in (1, 2, 4, 8) if k <= n], iters=3,
+        device=dev)
+    res["scaling_launches"] = read_launches()
+    return res
 
-    cb = FOLD_COUNT_B
+
+def run_multi_device(mesh) -> dict:
+    """World size 1 (one card): :func:`multi_device_checks`, then the
+    one-card n-shard folds (n = 4 and 3, count_b 16001, ties on the
+    kernel's and the shards' edges) against ``match_2nn_fused``, bit for
+    bit. A run across cards is ``--cards N``."""
+    from vulkansift_tpu_torch.parallel import ring_match as rm
+    res = multi_device_checks(mesh, torch.device("cuda",
+                                                 torch.cuda.current_device()))
+    n, cb = MATCH_N, FOLD_COUNT_B
+    a, b = _rand_desc(0, n), _rand_desc(1, n)
     res["fold_launches"] = {}
     for shards in (4, 3):
         b2 = shard_edge_ties(a, b, cb, shards)
@@ -1403,15 +1478,10 @@ def run_multi_device(img: np.ndarray, mesh) -> dict:
               f"{shards}-shard fold differs from match_2nn_fused")
         print(f"{shards}-shard fold at count_b {cb} bit-equal to "
               f"match_2nn_fused", flush=True)
-
-    zero_launches()
-    scaling = parallel.measure_dp_scaling(cfg, W, H, per_device_batch=2,
-                                          device_counts=[1], iters=3)
-    res["scaling_launches"] = read_launches()
-    res["scaling"] = scaling
     print(f"scaling point: 1 device, {W}x{H}, 2 frames a device: "
-          f"{scaling['points'][0]['fps']:.3f} fps; across cards: "
-          f"chip_smoke.py --cards N", flush=True)
+          f"{res['scaling']['points'][0]['fps']:.3f} fps; across cards: "
+          f"unmeasured here (chip_smoke.py --cards N)", flush=True)
+    print("multi_device " + json.dumps(res), flush=True)
     return res
 
 
@@ -1422,13 +1492,13 @@ SFM_CAMS, SFM_POINTS, SFM_NOISE = 8, 4096, 0.3
 SFM_CAMERA = (500.0, 500.0, 320.0, 240.0)
 
 
-def sfm_scene(rng: np.random.Generator, points: Optional[int] = None):
+def sfm_scene(rng: np.random.Generator):
     """(poses (C, 6), points, cam_idx, pt_idx, uv) of the visible
-    observations of ``points`` (default ``SFM_POINTS``) points, as
-    tests/test_sfm.py's ``_synthetic_scene`` draws them."""
+    observations of ``SFM_POINTS`` points, as tests/test_sfm.py's
+    ``_synthetic_scene`` draws them."""
     from vulkansift_tpu_torch.sfm import SE3, Camera
     cam = Camera(*SFM_CAMERA)
-    pts = rng.uniform(-2, 2, (points or SFM_POINTS, 3))
+    pts = rng.uniform(-2, 2, (SFM_POINTS, 3))
     pts[:, 2] += 8.0
     poses = np.asarray([[0.0, 0.08 * (i - SFM_CAMS / 2), 0.0,
                          0.6 * i - 0.3 * SFM_CAMS, 0.05 * i, 0.0]
@@ -1501,13 +1571,11 @@ def sfm_ba_problem(rng, poses, pts, cam_idx, pt_idx, uv, dev,
                      camera=Camera(*SFM_CAMERA))
 
 
-def run_sfm(mesh) -> dict:
+def run_sfm() -> dict:
     """``reconstruct_sequence`` on the card (final cost < 1 px^2, ATE <
     0.05, relative rotations < 1 degree) and against its CPU run with the
-    same seed (poses within 1e-3); ``make_distributed_ba`` (world size 1)
-    against ``bundle_adjust`` (the JAX test's bars); times of the
-    reconstruction, of RANSAC a pair, of the 8-point SVDs and of one BA
-    iteration."""
+    same seed (poses within 1e-3); times of the reconstruction, of RANSAC
+    a pair, of the 8-point SVDs and of one BA iteration."""
     from vulkansift_tpu_torch import sfm
     rng = np.random.default_rng(7)
     poses, pts, cam_idx, pt_idx, uv = sfm_scene(rng)
@@ -1570,7 +1638,8 @@ def run_sfm(mesh) -> dict:
     svd_ms = median_ms(lambda: sfm.essential_8pt(r1[idx], r2[idx]),
                        PLAIN_REPS)
 
-    problem = sfm_ba_problem(rng, poses, pts, cam_idx, pt_idx, uv, "cuda")
+    problem = sfm_ba_problem(np.random.default_rng(8), poses, pts, cam_idx,
+                             pt_idx, uv, "cuda")
 
     def ba(iters):
         return float(sfm.bundle_adjust(problem, nb_iters=iters,
@@ -1578,17 +1647,6 @@ def run_sfm(mesh) -> dict:
 
     ba_iter_ms = (median_ms(lambda: ba(11), 3) - median_ms(lambda: ba(1), 3)) \
         / 10
-    single = sfm.bundle_adjust(problem, nb_iters=10, nb_cg_iters=20)
-    distributed = sfm.make_distributed_ba(mesh, nb_iters=10,
-                                          nb_cg_iters=20)(problem)
-    d_err = float((distributed.poses - single.poses).abs().max())
-    check(float(distributed.final_cost)
-          < 0.05 * float(distributed.initial_cost),
-          "distributed BA did not converge")
-    check(abs(float(distributed.final_cost) - float(single.final_cost))
-          <= 1e-2 * float(single.final_cost) and d_err <= 1e-3,
-          f"distributed BA vs bundle_adjust: poses {d_err}, costs "
-          f"{float(distributed.final_cost)} / {float(single.final_cost)}")
     res = dict(launches=launches, frames=SFM_CAMS,
                features=[len(f) for f in feats], observations=len(uv),
                final_cost=rec.final_cost, initial_cost=rec.initial_cost,
@@ -1596,16 +1654,14 @@ def run_sfm(mesh) -> dict:
                reconstruction_ms=wall_ms, cpu_reconstruction_ms=cpu_ms,
                ransac_pair_ms=ransac_ms, ransac_pair_points=len(common),
                svd_8pt_256_ms=svd_ms, ba_iteration_ms=ba_iter_ms,
-               ba_observations=len(uv), distributed_ba_pose_err=d_err,
-               distributed_ba_final_cost=float(distributed.final_cost),
-               ba_final_cost=float(single.final_cost), profile=breakdown)
+               ba_observations=len(uv), profile=breakdown)
     print("sfm " + json.dumps(res), flush=True)
     return res
 
 
 def run_later_paths(img: np.ndarray) -> dict:
-    """The staged detector, the trace, then (one process group of world
-    size 1, NCCL over a file:// store) the multi-device paths and SfM."""
+    """The staged detector, the trace, the multi-device paths (one process
+    group of world size 1, NCCL over a file:// store), then SfM."""
     import torch.distributed as dist
     from vulkansift_tpu_torch import parallel
     res = dict(staged=run_staged(img), trace=run_trace(img))
@@ -1614,127 +1670,25 @@ def run_later_paths(img: np.ndarray) -> dict:
         parallel.init_distributed(f"file://{d}/store", 1, 0, device="cuda")
         try:
             mesh = parallel.make_mesh(1)
-            res["multi_device"] = run_multi_device(img, mesh)
-            res["sfm"] = run_sfm(mesh)
+            res["multi_device"] = run_multi_device(mesh)
         finally:
             dist.destroy_process_group()
+    res["sfm"] = run_sfm()
     return res
 
 
 # -- across cards (--cards N) --------------------------------------------------
 
-def cards_checks(rank: int, n: int, dev: torch.device, sizes: dict) -> dict:
-    """One rank's share of the multi-card run over a mesh of all ``n``
-    ranks: the ring at full and ragged counts (ties on the kernel's and
-    the shards' edges), dp detect of 2 frames a rank and the distributed
-    BA, each against the single-device result computed on this rank's own
-    device, then the dp scaling points."""
-    import torch.distributed as dist
-    from vulkansift_tpu_torch import parallel, sfm
-    mesh = parallel.make_mesh(n)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    res = dict(rank=rank, device=str(dev))
-
-    m_n = sizes["match_n"]
-    rng = np.random.default_rng(0)
-    a = torch.from_numpy(rng.integers(0, 256, (m_n, 128), np.uint8)).to(dev)
-    b = torch.from_numpy(rng.integers(0, 256, (m_n, 128), np.uint8)).to(dev)
-    ring = parallel.make_ring_match_fn(mesh, device=dev)
-    na_l = -(-m_n // n)
-    rows = slice(rank * na_l, min((rank + 1) * na_l, m_n))
-    for what, bb, cb in (("full", b, m_n),
-                         ("ragged", shard_edge_ties(a, b, sizes["fold_cb"],
-                                                    n), sizes["fold_cb"])):
-        zero_launches()
-        m = ring(a, m_n, bb, cb)
-        sync()
-        launches = {k: w.launches for k, w in WRAPPERS.items()}
-        # (On the CPU, for a rehearsal, the plain version runs.)
-        check(launches["match_2nn"] == (n if dev.type == "cuda" else 0),
-              f"ring {what}: {launches['match_2nn']} launches, expected {n}")
-        ref = match_mod.match_2nn_fused(a, m_n, bb, cb)
-        k = rows.stop - rows.start
-        check(all(torch.equal(getattr(m, f)[:k].view(torch.int32),
-                              getattr(ref, f)[rows].view(torch.int32))
-                  for f in ("idx_a", "idx_b1", "idx_b2", "dist_a_b1",
-                            "dist_a_b2")),
-              f"ring {what}: rank {rank}'s rows differ from match_2nn_fused")
-        res[f"ring_{what}_launches"] = launches
-
-    def wall_ms(fn, reps: int = 5) -> float:
-        fn()
-        sync()
-        out = []
-        for _ in range(reps):
-            dist.barrier()
-            t0 = time.perf_counter()
-            fn()
-            sync()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(out)
-
-    print(f"rank {rank}: ring bit-equal", flush=True)
-    res["ring_ms"] = wall_ms(lambda: ring(a, m_n, b, m_n))
-    res["single_match_ms"] = wall_ms(
-        lambda: match_mod.match_2nn_fused(a, m_n, b, m_n))
-
-    w, h = sizes["w"], sizes["h"]
-    cfg = vt.SiftConfig(use_input_upsampling=True,
-                        max_nb_sift_per_buffer=sizes["capacity"])
-    img = bench_image(h, w, seed=0)
-    frames = np.stack([shifted(img, i, i) for i in range(2 * n)])
-    dp = parallel.make_dp_detect_fn(cfg, w, h, mesh, device=dev)
-    out = dp(parallel.shard_batch(frames, mesh, device=dev))
-    single = make_detect_fn(cfg, w, h, device=dev)
-    for i in range(2):
-        ref = single(frames[2 * rank + i])
-        got = vt.Features(**{f.name: getattr(out.features, f.name)[i]
-                             for f in dataclasses.fields(vt.Features)})
-        check(vt.features_to_numpy(got).tobytes()
-              == vt.features_to_numpy(ref.features).tobytes(),
-              f"dp detect: rank {rank} frame {i} differs from a single "
-              f"detect")
-    res["dp_counts"] = [int(c) for c in out.features.count]
-    print(f"rank {rank}: dp detect bit-equal", flush=True)
-
-    poses, pts, cam_idx, pt_idx, uv = sfm_scene(np.random.default_rng(7),
-                                                sizes["sfm_points"])
-    problem = sfm_ba_problem(np.random.default_rng(8), poses, pts, cam_idx,
-                             pt_idx, uv, dev, multiple=n)
-    dist_ba = sfm.make_distributed_ba(mesh, nb_iters=10, nb_cg_iters=20,
-                                      device=dev)
-    r_d = dist_ba(problem)
-    r_s = sfm.bundle_adjust(problem, nb_iters=10, nb_cg_iters=20)
-    err = float((r_d.poses - r_s.poses).abs().max())
-    check(err <= 1e-3 and abs(float(r_d.final_cost) - float(r_s.final_cost))
-          <= 1e-2 * float(r_s.final_cost),
-          f"distributed BA on {n} ranks vs bundle_adjust: poses {err}")
-    print(f"rank {rank}: distributed BA agrees", flush=True)
-    res.update(ba_pose_err=err, ba_final_cost=float(r_d.final_cost),
-               ba_observations=len(uv),
-               distributed_ba_ms=wall_ms(lambda: dist_ba(problem), 3),
-               single_ba_ms=wall_ms(lambda: sfm.bundle_adjust(
-                   problem, nb_iters=10, nb_cg_iters=20), 3))
-
-    res["scaling"] = parallel.measure_dp_scaling(
-        cfg, w, h, per_device_batch=2,
-        device_counts=[k for k in (1, 2, 4, 8) if k <= n], iters=3,
-        device=dev)
-    return res
-
-
-def cards_rank(rank: int, n: int, work: str, device: str,
-               sizes: dict) -> None:
-    """Entry of one spawned rank: join the group (NCCL for ``"cuda"``,
-    gloo for ``"cpu"``), run :func:`cards_checks`, and rank 0 writes every
-    rank's result to ``work``/cards.json."""
+def cards_rank(rank: int, n: int, work: str) -> None:
+    """Entry of one spawned rank: join the NCCL group, run
+    :func:`multi_device_checks` over all ``n`` ranks, and rank 0 writes
+    every rank's result to ``work``/cards.json."""
     import torch.distributed as dist
     from vulkansift_tpu_torch import parallel
-    parallel.init_distributed(f"file://{work}/store", n, rank, device=device)
+    parallel.init_distributed(f"file://{work}/store", n, rank, device="cuda")
     try:
-        dev = torch.device("cpu") if device == "cpu" else \
-            torch.device("cuda", torch.cuda.current_device())
-        res = cards_checks(rank, n, dev, sizes)
+        res = multi_device_checks(parallel.make_mesh(n), torch.device(
+            "cuda", torch.cuda.current_device()))
         every = [None] * n
         dist.all_gather_object(every, res)
         if rank == 0:
@@ -1743,26 +1697,13 @@ def cards_rank(rank: int, n: int, work: str, device: str,
         dist.destroy_process_group()
 
 
-CARD_SIZES = dict(w=W, h=H, capacity=CAPACITY, match_n=MATCH_N,
-                  fold_cb=16001, sfm_points=SFM_POINTS)
-
-
-def run_cards(n: int, device: str = "cuda", sizes: dict = CARD_SIZES,
-              timeout: float = 600.0) -> list:
-    """The multi-device paths across ``n`` ranks, one spawned process
-    each; every rank's failure fails the run, and ranks still running
-    after ``timeout`` seconds are killed."""
-    import torch.multiprocessing as mp
+def run_cards(n: int) -> list:
+    """The multi-device paths across ``n`` cards, one spawned process
+    each; every rank's failure fails the run."""
+    from vulkansift_tpu_torch.parallel.mesh import spawn_ranks
     cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as work:
-        ctx = mp.spawn(cards_rank, args=(n, work, device, sizes), nprocs=n,
-                       join=False)
-        deadline = time.monotonic() + timeout
-        while not ctx.join(timeout=1.0):
-            if time.monotonic() > deadline:
-                for p in ctx.processes:
-                    p.kill()
-                raise TimeoutError(f"{n} ranks did not finish in {timeout} s")
+        spawn_ranks(cards_rank, n, (n, work))
         every = json.loads(Path(work, "cards.json").read_text())
     for r in every:
         print("cards_rank " + json.dumps(r), flush=True)
@@ -1879,7 +1820,9 @@ def main() -> int:
     paths = {"detect": res["launches"], "match": res_match["launches"],
              "staged": later["staged"]["launches"],
              "trace": later["trace"]["launches"],
-             "dp_detect": md["dp_launches"], "ring": md["ring_launches"],
+             "dp_detect": md["dp_launches"],
+             "ring": md["ring_full_launches"],
+             "ring_ragged": md["ring_ragged_launches"],
              **{f"fold_{n}": v for n, v in md["fold_launches"].items()},
              "scaling": md["scaling_launches"],
              "sfm": later["sfm"]["launches"]}

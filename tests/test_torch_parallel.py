@@ -18,12 +18,15 @@ tests read what the ranks wrote.
   size and with ties across shards (``tests/test_pipeline_parallel.py``);
 * the one-process n-shard fold (n = 4 and 3) bit-identical to
   ``match_2nn_fused``;
-* ``measure_dp_scaling`` over 1, 2 and 4 ranks.
+* ``measure_dp_scaling`` over 1, 2 and 4 ranks;
+* ``spawn_ranks`` raises for a failed rank and kills ranks that outlive
+  its timeout.
 """
 
 import dataclasses
 import json
 import os
+import time
 
 import numpy as np
 import jax.numpy as jnp
@@ -40,6 +43,7 @@ from vulkansift_tpu.parallel import make_ring_match_fn as jax_ring
 from vulkansift_tpu.parallel import shard_batch as jax_shard
 import vulkansift_tpu_torch as vt
 from vulkansift_tpu_torch.ops.match import match_2nn_fused
+from vulkansift_tpu_torch.parallel.mesh import spawn_ranks
 from vulkansift_tpu_torch.parallel.ring_match import (finish, fold_shards,
                                                      pad_rows)
 
@@ -183,3 +187,16 @@ def test_measure_dp_scaling_runs(ranks):
     assert res["points"][0]["efficiency"] == 1.0
     assert res["backend"] == "cpu" and res["world_size"] == WORLD
     assert res["cards"] is None
+
+
+def test_spawn_ranks_raises_for_a_failed_rank():
+    with pytest.raises(Exception, match="rank 1 fails"):
+        spawn_ranks(torch_parallel_workers.fail_rank, 2)
+
+
+def test_spawn_ranks_kills_ranks_past_the_timeout():
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError):
+        spawn_ranks(torch_parallel_workers.sleep_rank, 2, (600.0,),
+                    timeout=2.0)
+    assert time.monotonic() - t0 < 60

@@ -6,26 +6,18 @@ torch and the port only, so that a spawned child loads no JAX."""
 import dataclasses
 import json
 import os
-import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 
-def spawn(world: int, work_dir: str, tasks, timeout: float = 300.0) -> None:
+def spawn(world: int, work_dir: str, tasks) -> None:
     """Run ``tasks`` on ``world`` gloo ranks; raises if a rank fails, and
-    kills them all when they have not finished within ``timeout`` seconds
+    kills them all when they have not finished in ``spawn_ranks``'s time
     (a stuck collective must not hold the test run)."""
-    ctx = mp.spawn(run, args=(world, work_dir, list(tasks)), nprocs=world,
-                   join=False)
-    deadline = time.monotonic() + timeout
-    while not ctx.join(timeout=1.0):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise TimeoutError(f"ranks did not finish {tasks} in {timeout} s")
+    from vulkansift_tpu_torch.parallel.mesh import spawn_ranks
+    spawn_ranks(run, world, (world, work_dir, list(tasks)))
 
 
 def run(rank: int, world: int, work_dir: str, tasks) -> None:
@@ -114,3 +106,13 @@ def _distributed_ba(rank: int, work_dir: str) -> None:
              poses=r.poses.numpy(), points=r.points.numpy(),
              initial_cost=r.initial_cost.numpy(),
              final_cost=r.final_cost.numpy())
+
+
+def sleep_rank(rank: int, seconds: float) -> None:
+    import time
+    time.sleep(seconds)
+
+
+def fail_rank(rank: int) -> None:
+    if rank == 1:
+        raise RuntimeError("rank 1 fails")

@@ -11,7 +11,8 @@ sharded 2-NN ring (:mod:`.ring_match`) both ride that axis.
 from __future__ import annotations
 
 import os
-from typing import Optional
+import time
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -91,3 +92,20 @@ def mesh_rank(mesh: DeviceMesh, axis_name: str = DATA_AXIS) -> int:
     if mesh.get_coordinate() is None:
         raise ValueError("this rank is not in the mesh")
     return mesh.get_local_rank(axis_name)
+
+
+def spawn_ranks(fn: Callable, nprocs: int, args: tuple = (),
+                timeout: float = 300.0) -> None:
+    """Run ``fn(rank, *args)`` in ``nprocs`` processes on this host
+    (``torch.multiprocessing.spawn``). Raises if a process fails, and
+    kills them all when they have not finished within ``timeout`` seconds,
+    so that a stuck collective cannot hold the caller."""
+    import torch.multiprocessing as mp
+    ctx = mp.spawn(fn, args=args, nprocs=nprocs, join=False)
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{nprocs} processes did not finish in "
+                               f"{timeout} s")
