@@ -282,3 +282,49 @@ def test_checkpoint_loads_in_the_other_package(tmp_path, writer):
     for k, v in arrays.items():
         np.testing.assert_array_equal(getattr(back, k), v)
     assert (back.initial_cost, back.final_cost) == (10.0, 0.1)
+
+
+def test_bundle_adjust_fix_scale_holds_the_gauge():
+    """``fix_scale`` holds the first camera and the largest translation
+    coordinate of the others exactly, and converges at least as far as the
+    JAX package's gauge (first camera's update zeroed after the solve)."""
+    problem, _, _ = test_sfm._perturbed_problem(np.random.default_rng(4))
+    p = _port_problem(problem)
+    held = tsfm.bundle_adjustment._gauge_free(p.poses) == 0
+    assert int(held.sum()) == 7 and bool(held[0].all())
+    fixed = tsfm.bundle_adjust(p, nb_iters=15, nb_cg_iters=29,
+                               fix_scale=True)
+    free = tsfm.bundle_adjust(p, nb_iters=15, nb_cg_iters=29)
+    np.testing.assert_array_equal(fixed.poses[held], p.poses[held])
+    assert float(fixed.final_cost) < 0.02 * float(fixed.initial_cost)
+    assert float(fixed.final_cost) <= float(free.final_cost)
+    with pytest.raises(ValueError):
+        tsfm.bundle_adjust(p, fix_scale=True, fix_first_pose=False)
+
+
+def test_reconstruct_sequence_does_not_depend_on_the_summation_order(
+        monkeypatch):
+    """The 8-camera, 4096-point scene of the card check: BA's segment sums
+    taken in two other orders (as the card's atomics take them) move the
+    poses by no more than the card gate's 1e-3, and BA reaches the noise
+    floor, 2 sigma^2 (1 - unknowns / residuals), within 5 %."""
+    poses_t, feats = _sequence_features(np.random.default_rng(7), 8, 4096,
+                                        0.3)
+    kw = dict(ratio=0.8, ransac_iters=256, ba_iters=30, seed=0, device="cpu")
+    ref = tsfm.reconstruct_sequence(feats, TCAM, **kw)
+    nb_res = 2 * sum(len(f) for f in feats)
+    nb_unknowns = 3 * len(ref.points) + 6 * len(feats) - 7
+    assert ref.final_cost < 1.05 * 2 * 0.3 ** 2 * (1 - nb_unknowns / nb_res)
+    assert tsfm.absolute_trajectory_error(ref.poses, poses_t) < 0.05
+    plain = tsfm.bundle_adjustment._segment_sum
+    for seed in (1, 2):
+        gen = torch.Generator().manual_seed(seed)
+
+        def shuffled(x, idx, n, psum):
+            p = torch.randperm(len(idx), generator=gen)
+            return plain(x[p], idx[p], n, psum)
+
+        monkeypatch.setattr(tsfm.bundle_adjustment, "_segment_sum",
+                            shuffled)
+        rec = tsfm.reconstruct_sequence(feats, TCAM, **kw)
+        _close(rec.poses, ref.poses, 1e-3)

@@ -17,6 +17,17 @@ Port of ``vulkansift_tpu/sfm/bundle_adjustment.py``:
 ``index_add_`` on CUDA adds with atomics, so its float sums, and with them
 the results, vary in the last bits from run to run.
 
+Gauge: like the JAX package, :func:`bundle_adjust` by default zeroes the
+first camera's update after a solve over every camera. That solve still
+holds the seven directions of the similarity gauge, along which the step
+is rounding noise over the damping, and the monocular scale is never
+pinned: on an 8-camera scene, sums taken in another order (as the card's
+atomics take them) can move the poses by more than 1e-3.
+``fix_scale=True`` (the port only; used by
+:func:`..reconstruction.reconstruct_sequence`) holds the first camera and
+one translation coordinate out of the solve instead, which removes the
+whole gauge.
+
 The Huber weight is recomputed at each outer iteration (IRLS).
 """
 
@@ -136,12 +147,25 @@ def _ba_step_terms(problem: BAProblem, huber_delta: float,
                 seg_c=seg_c, seg_p=seg_p)
 
 
+def _gauge_free(poses: torch.Tensor) -> torch.Tensor:
+    """(C, 6) 1 where the solve may move a camera parameter: every one but
+    the first camera's and the largest translation coordinate among the
+    others (its value pins the scale)."""
+    free = torch.ones_like(poses)
+    free[0] = 0.0
+    k = int(torch.argmax(poses[1:, 3:].abs()))
+    free[1 + k // 3, 3 + k % 3] = 0.0
+    return free
+
+
 def _solve_schur_cg(problem: BAProblem, terms, lam: torch.Tensor,
-                    nb_cg_iters: int):
+                    nb_cg_iters: int, free: Optional[torch.Tensor] = None):
     """Matrix-free CG on the reduced camera system.
 
     S dx = g with S = U + lam I - W (V + lam I)^{-1} W^T, then landmark
-    back-substitution. Returns (d_poses (C, 6), d_points (Pt, 3))."""
+    back-substitution. ``free`` (optional, (C, 6) of 0 and 1) restricts
+    the solve to the parameters marked 1; the others' updates are 0.
+    Returns (d_poses (C, 6), d_points (Pt, 3))."""
     u, v, wtt = terms["u"], terms["v"], terms["wtt"]
     seg_c, seg_p = terms["seg_c"], terms["seg_p"]
     cam_idx, pt_idx = problem.cam_idx.long(), problem.pt_idx.long()
@@ -155,14 +179,18 @@ def _solve_schur_cg(problem: BAProblem, terms, lam: torch.Tensor,
         y = torch.einsum("cij,cj->ci", u_d, x)
         wx = torch.einsum("nji,nj->ni", wtt, x[cam_idx])    # W^T x per obs
         z = torch.einsum("pij,pj->pi", v_inv, seg_p(wx))    # (Pt, 3)
-        return y - seg_c(torch.einsum("nij,nj->ni", wtt, z[pt_idx]))
+        y = y - seg_c(torch.einsum("nij,nj->ni", wtt, z[pt_idx]))
+        return y if free is None else y * free
 
     # rhs: g_c - W V^{-1} g_p
     z0 = torch.einsum("pij,pj->pi", v_inv, terms["g_p"])
     rhs = terms["g_c"] - seg_c(torch.einsum("nij,nj->ni", wtt, z0[pt_idx]))
 
-    # Jacobi-preconditioned CG.
+    # Jacobi-preconditioned CG (held parameters: infinite diagonal).
     diag = torch.clamp(torch.diagonal(u_d, dim1=-2, dim2=-1), min=1e-6)
+    if free is not None:
+        rhs = rhs * free
+        diag = torch.where(free > 0, diag, torch.inf)
     x = torch.zeros_like(rhs)
     r = rhs
     p = r / diag
@@ -185,15 +213,16 @@ def _solve_schur_cg(problem: BAProblem, terms, lam: torch.Tensor,
 
 def _lm(problem: BAProblem, *, nb_iters: int, nb_cg_iters: int,
         huber_delta: float, init_lambda: float, fix_first_pose: bool,
-        psum: Reduce = None) -> BAResult:
+        fix_scale: bool = False, psum: Reduce = None) -> BAResult:
     """Levenberg-Marquardt; acceptance and damping stay on the device."""
     poses, points = problem.poses, problem.points
+    free = _gauge_free(poses) if fix_scale else None
     lam = torch.tensor(init_lambda, dtype=poses.dtype, device=poses.device)
     init_cost = _cost(problem, psum)
     for _ in range(nb_iters):
         p2 = problem._replace(poses=poses, points=points)
         terms = _ba_step_terms(p2, huber_delta, psum)
-        dx, dpt = _solve_schur_cg(p2, terms, lam, nb_cg_iters)
+        dx, dpt = _solve_schur_cg(p2, terms, lam, nb_cg_iters, free)
         if fix_first_pose:
             dx[0] = 0.0
         new_poses, new_points = poses + dx, points + dpt
@@ -212,13 +241,20 @@ def _lm(problem: BAProblem, *, nb_iters: int, nb_cg_iters: int,
 def bundle_adjust(problem: BAProblem, *, nb_iters: int = 10,
                   nb_cg_iters: int = 20, huber_delta: float = 3.0,
                   init_lambda: float = 1e-3,
-                  fix_first_pose: bool = True) -> BAResult:
+                  fix_first_pose: bool = True,
+                  fix_scale: bool = False) -> BAResult:
     """Levenberg-Marquardt BA with the matrix-free Schur complement, on
     the device the problem's tensors lie on. The first camera is
-    gauge-fixed (its update zeroed) by default."""
+    gauge-fixed (its update zeroed) by default. ``fix_scale`` holds the
+    first camera and the largest translation coordinate of the others out
+    of the solve (the module docstring says why); it needs
+    ``fix_first_pose`` and two or more cameras."""
+    if fix_scale and not (fix_first_pose and problem.poses.shape[0] > 1):
+        raise ValueError("fix_scale needs fix_first_pose and two or more "
+                         "cameras")
     return _lm(problem, nb_iters=nb_iters, nb_cg_iters=nb_cg_iters,
                huber_delta=huber_delta, init_lambda=init_lambda,
-               fix_first_pose=fix_first_pose)
+               fix_first_pose=fix_first_pose, fix_scale=fix_scale)
 
 
 def make_distributed_ba(mesh: DeviceMesh, axis_name: str = DATA_AXIS, *,

@@ -97,8 +97,9 @@ def reconstruct_sequence(
     pose-graph optimisation over all relative-pose edges (when
     ``max_pairs_gap`` > 1 adds loop closures) -> union-find tracks ->
     linear triangulation -> LM bundle adjustment (matrix-free Schur). Scale
-    is fixed by unit baselines between consecutive views. Runs on
-    ``device`` (default ``"cuda"``, raising without a card)."""
+    is fixed by unit baselines between consecutive views, and BA keeps it
+    (``fix_scale``: the JAX package lets it drift). Runs on ``device``
+    (default ``"cuda"``, raising without a card)."""
     dev = resolve_device(device)
     nb = len(features)
     if nb < 2:
@@ -241,7 +242,12 @@ def reconstruct_sequence(
     problem = BAProblem(poses=torch.from_numpy(tangents).to(dev),
                         points=pts.to(torch.float32), cam_idx=oc, pt_idx=op,
                         uv=uv_t, valid=obs_valid, camera=camera)
-    result = bundle_adjust(problem, nb_iters=ba_iters)
+    # CG converges in as many steps as there are free camera parameters
+    # (exact arithmetic); fewer leave each step, and so the poses, to the
+    # rounding of the sums.
+    result = bundle_adjust(problem, nb_iters=ba_iters,
+                           nb_cg_iters=max(20, 6 * (nb - 1) - 1),
+                           fix_scale=True)
     return Reconstruction(
         poses=result.poses.cpu().numpy(),
         points=result.points.cpu().numpy(),
