@@ -68,7 +68,26 @@
      within 1e-3), ``make_distributed_ba`` against ``bundle_adjust``, and
      the times of the reconstruction, RANSAC a pair, the 8-point SVDs and
      one BA iteration.
-8. Prints the per-frame kernel sums, the launches by path and the kernel
+8. Drives the port's perf harness, examples and native IO, each with the
+   launch counters set to 0 just before and read just after (none of it
+   needs cv2, matplotlib or sklearn):
+   - ``perf.harness.run_runtime_benchmark`` with
+     ``VulkanSiftTpuTorchDetector`` at 640x480, 1536x1024 and 3456x2304
+     (3 warm-ups, 10 timed upload + detect + download runs; the 1536x1024
+     count must equal the slice's);
+   - ``perf.harness.compute_metrics`` on the frame and its 7x5 px
+     translate (precision >= 0.9, one matcher launch, Lowe matches equal
+     to the CPU's);
+   - each example's compute function on a 640x480 frame: ``sift_detect``
+     (count equal to ``detect_features``'), ``sift_match`` (>= 90 % of the
+     cross-checked matches on the translation), ``sift_error_handling``
+     (four ``InvalidInputError``, the instance still detects),
+     ``sift_profile`` (its trace names the four detect kernels) and
+     ``sift_show_pyramid`` (the octave plan);
+   - ``utils.native_io`` built with g++ into ``build/``: a PGM of the
+     frame decodes to its bytes natively and in Python, a feature file
+     round-trips the frame's features.
+9. Prints the per-frame kernel sums, the launches by path and the kernel
    table (launches summed over every path) as JSON lines, the total
    seconds, the card line, and as the last line ``{"ok": true, "device":
    {...}}``.
@@ -1683,6 +1702,197 @@ def run_later_paths(img: np.ndarray) -> dict:
     return res
 
 
+# -- the perf harness, native IO and the examples ---------------------------
+
+RUNTIME_SIZES = ((640, 480), (1536, 1024), (3456, 2304))   # the JAX bench's
+RUNTIME_WARMUP, RUNTIME_ITERS = 3, 10
+DETECT_SYMBOLS = tuple(TRACE_SYMBOLS[k] for k in DETECT_KERNELS)
+
+
+def run_runtime(card: str, slice_count: int) -> dict:
+    """``perf.harness.run_runtime_benchmark`` (upload + detect + download)
+    with ``VulkanSiftTpuTorchDetector`` at the JAX bench's three frame
+    sizes, result files under ``build/perf``; the 1536x1024 frame must give
+    the slice phase's count."""
+    from vulkansift_tpu_torch.perf import harness
+    out_dir = cuda_lib.BUILD_DIR / "perf"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    det = harness.VulkanSiftTpuTorchDetector(device="cuda")
+    det.init()
+    sizes, launches = {}, {}
+    for w, h in RUNTIME_SIZES:
+        img = bench_image(h, w, seed=0)
+        zero_launches()
+        mean_ms, nb = harness.run_runtime_benchmark(
+            img, det, warmup=RUNTIME_WARMUP, iters=RUNTIME_ITERS,
+            out_dir=str(out_dir))
+        launches[f"runtime_{w}x{h}"] = read_launches()
+        for k in DETECT_KERNELS:
+            check(launches[f"runtime_{w}x{h}"][k] > 0,
+                  f"kernel {k} was not launched by the runtime protocol")
+        check(nb > 0, f"runtime {w}x{h}: no features")
+        sizes[f"{w}x{h}"] = dict(mean_ms=mean_ms, features=nb)
+        print(f"runtime {w}x{h}: {mean_ms:.4f} ms mean of {RUNTIME_ITERS} "
+              f"(after {RUNTIME_WARMUP} warm-ups), {nb} features; {card}",
+              flush=True)
+    written = (out_dir / "runtime_results_vulkansift_tpu_torch.txt"
+               ).read_text().strip()
+    check(written.endswith(f";{nb}"), f"runtime result file reads {written}")
+    det.terminate()
+    check(sizes[f"{W}x{H}"]["features"] == slice_count,
+          f"runtime {W}x{H}: {sizes[f'{W}x{H}']['features']} features vs "
+          f"{slice_count} in the slice phase")
+    return dict(sizes=sizes, launches=launches)
+
+
+def run_metrics(img: np.ndarray) -> dict:
+    """``perf.harness.compute_metrics`` on the frame and its 7x5 px
+    translate with H the translation: precision >= 0.9, one matcher
+    launch, and its Lowe matches equal to the plain matcher's on the CPU."""
+    from vulkansift_tpu_torch.perf import harness
+    det = harness.VulkanSiftTpuTorchDetector(device="cuda")
+    det.init()
+    img_b = shifted(img, *SHIFT)
+    r1, r2 = det.detect(img), det.detect(img_b)
+    det.terminate()
+    hmat = np.array([[1.0, 0.0, SHIFT[0]], [0.0, 1.0, SHIFT[1]],
+                     [0.0, 0.0, 1.0]])
+    zero_launches()
+    rep, pmr, prec, score = harness.compute_metrics(img, img_b, hmat, r1, r2,
+                                                    device="cuda")
+    launches = read_launches()
+    check(launches == {k: int(k == "match_2nn") for k in WRAPPERS},
+          f"compute_metrics launched {launches}")
+    check(prec >= 0.9, f"compute_metrics precision {prec} < 0.9")
+    m_card = harness.lowe_matches(r1.descriptors, r2.descriptors,
+                                  device="cuda")
+    m_cpu = harness.lowe_matches(r1.descriptors, r2.descriptors,
+                                 device="cpu")
+    check(np.array_equal(m_card, m_cpu),
+          "lowe_matches on the card differ from the CPU's")
+    res = dict(launches=launches, features=[len(r1.xy), len(r2.xy)],
+               lowe_matches=len(m_card), repeatability=rep,
+               putative_match_ratio=pmr, precision=prec, matching_score=score)
+    print("metrics " + json.dumps(res), flush=True)
+    return res
+
+
+def run_native_io(img: np.ndarray, feats: np.ndarray) -> dict:
+    """``utils.native_io`` built from ``native/vksift_io.cpp`` into
+    ``build/``: a PGM of the frame decodes to its bytes through the native
+    and the Python paths, and a feature file round-trips the frame's
+    features."""
+    from vulkansift_tpu_torch.utils import native_io
+    t0 = time.perf_counter()
+    native_io.build()
+    build_s = time.perf_counter() - t0
+    check(native_io.available(), "native IO library not available")
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as d:
+        pgm = Path(d, "frame.pgm")
+        pgm.write_bytes(b"P5\n%d %d\n255\n" % (img.shape[1], img.shape[0])
+                        + img.tobytes())
+        native = native_io.read_image_gray(str(pgm))
+        python = native_io._read_pnm_python(str(pgm))
+        check(native.tobytes() == python.tobytes() == img.tobytes(),
+              "native and Python PGM decodes differ from the frame")
+        vft = str(Path(d, "frame.vft"))
+        native_io.save_features(vft, feats)
+        back = native_io.load_features(vft)
+        check(back.tobytes() == feats.tobytes(),
+              "feature file does not round-trip the frame's features")
+    res = dict(build_seconds=build_s, library=native_io.lib_path().name,
+               pgm_bytes=img.size, features=len(feats))
+    print("native_io " + json.dumps(res), flush=True)
+    return res
+
+
+def run_examples(img: np.ndarray) -> dict:
+    """Each example's compute function once on the card, on ``img`` (and
+    its 7x5 px translate for ``sift_match``), launches counted per
+    example."""
+    from vulkansift_tpu_torch.examples import (sift_detect,
+                                               sift_error_handling,
+                                               sift_match, sift_profile,
+                                               sift_show_pyramid)
+    h, w = img.shape
+    res, launches = {}, {}
+
+    zero_launches()
+    feats = sift_detect.detect(img, "cuda")
+    launches["example_sift_detect"] = read_launches()
+    inst = vt.SiftInstance(vt.SiftConfig(max_nb_sift_per_buffer=16384,
+                                         input_image_max_size=4096 * 4096),
+                           device="cuda")
+    inst.detect_features(img, 0)
+    n_inst = inst.get_features_number(0)
+    del inst
+    check(len(feats) == n_inst > 0,
+          f"sift_detect: {len(feats)} features vs detect_features {n_inst}")
+    res["sift_detect"] = dict(features=len(feats))
+
+    zero_launches()
+    m = sift_match.match(img, shifted(img, *SHIFT), "cuda")
+    launches["example_sift_match"] = read_launches()
+    f1, f2, ia, ib = m["f1"], m["f2"], m["ia"], m["ib"]
+    err = np.hypot(f2["x"][ib] - f1["x"][ia] - SHIFT[0],
+                   f2["y"][ib] - f1["y"][ia] - SHIFT[1])
+    share = float((err <= 1.5).mean()) if len(ia) else 0.0
+    check(len(ia) > 0 and share >= 0.9,
+          f"sift_match: {len(ia)} matches, {share} within 1.5 px of {SHIFT}")
+    res["sift_match"] = dict(features=[len(f1), len(f2)], matches=len(ia),
+                             translation_share=share)
+
+    zero_launches()
+    e = sift_error_handling.run(img, "cuda")
+    launches["example_sift_error_handling"] = read_launches()
+    check(len(e["caught"]) == 4 and None not in e["caught"]
+          and e["callbacks"] == ["INVALID_INPUT_ERROR"] * 4
+          and e["features"] > 0, f"sift_error_handling: {e}")
+    res["sift_error_handling"] = dict(callbacks=len(e["callbacks"]),
+                                      features=e["features"])
+
+    with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as d:
+        zero_launches()
+        p = sift_profile.profile(img, "cuda", iters=2, trace_dir=d)
+        launches["example_sift_profile"] = read_launches()
+        text = Path(p["trace"]).read_text()
+    missing = [k for k in DETECT_SYMBOLS if k not in text]
+    check(not missing, f"sift_profile's trace lacks the kernels {missing}")
+    check(all(r[2] == len(feats) for r in p["iters"]),
+          f"sift_profile counts {p['iters']} vs {len(feats)}")
+    res["sift_profile"] = dict(iters=p["iters"], symbols=list(DETECT_SYMBOLS))
+
+    zero_launches()
+    pyr = sift_show_pyramid.pyramid(img, "cuda")
+    launches["example_sift_show_pyramid"] = read_launches()
+    plan = vt.octave_plan(vt.SiftConfig(), w, h)
+    check(pyr["octaves"] == list(plan),
+          f"sift_show_pyramid: octaves {pyr['octaves']} vs {plan}")
+    check(all(g.shape == (oh, ow) and bool(np.isfinite(g).all())
+              for (ow, oh), gs, ds in zip(plan, pyr["gaussians"], pyr["dogs"])
+              for g in gs + ds), "sift_show_pyramid: level shapes")
+    res["sift_show_pyramid"] = dict(octaves=len(pyr["octaves"]))
+    for name, v in launches.items():
+        for k in DETECT_KERNELS:
+            check(v[k] > 0, f"{name} did not launch {k}")
+    check(launches["example_sift_match"]["match_2nn"] == 2,
+          "sift_match did not launch match_2nn twice")
+    print("examples " + json.dumps(res), flush=True)
+    return dict(results=res, launches=launches, features=feats)
+
+
+def run_perf_paths(img: np.ndarray, card: str, slice_count: int) -> dict:
+    """The runtime protocol, the matching metrics, the examples and native
+    IO (none of them needs cv2, matplotlib or sklearn)."""
+    res = dict(runtime=run_runtime(card, slice_count),
+               metrics=run_metrics(img))
+    ex = run_examples(bench_image(480, 640, seed=5))
+    res["examples"] = ex
+    res["native_io"] = run_native_io(img, ex["features"])
+    return res
+
+
 # -- across cards (--cards N) --------------------------------------------------
 
 def cards_rank(rank: int, n: int, work: str) -> None:
@@ -1820,6 +2030,7 @@ def main() -> int:
     res_match = run_match(img, parent)
     profile_frames(img)
     later = run_later_paths(img)
+    perf = run_perf_paths(img, card, res["count"])
 
     # Launches of every path's driven run, each counted from 0.
     md = later["multi_device"]
@@ -1831,7 +2042,10 @@ def main() -> int:
              "ring_ragged": md["ring_ragged_launches"],
              **{f"fold_{n}": v for n, v in md["fold_launches"].items()},
              "scaling": md["scaling_launches"],
-             "sfm": later["sfm"]["launches"]}
+             "sfm": later["sfm"]["launches"],
+             **perf["runtime"]["launches"],
+             "metrics": perf["metrics"]["launches"],
+             **perf["examples"]["launches"]}
     print("launches_by_path " + json.dumps(paths), flush=True)
     kernels = []
     for name, r in rows.items():

@@ -32,6 +32,7 @@ from vulkansift_tpu_torch.ops import extract as tex
 from vulkansift_tpu_torch.ops import orientation as tori
 from vulkansift_tpu_torch.ops import patches as tpatch
 from vulkansift_tpu_torch.ops import scale_space as tss
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _setup():
@@ -151,3 +152,26 @@ def test_raw_rows_past_count_are_zero(setup):
                          count, desc_radius=tpatch.max_descriptor_radius(tcfg),
                          use_vlfeat=False)
     assert torch.count_nonzero(raw[5:]) == 0
+
+
+@pytest.mark.parametrize("live", [0, 1, 33, None])
+def test_cpu_plain_versions_skip_dead_rows_exactly(setup, live):
+    """On the CPU the plain histogram and descriptor compute only the rows
+    below the count (the descriptor in whole chunks): the live rows equal
+    those of a run over every row, bit for bit, and the rest are zero."""
+    cfg, tcfg, refined, ss, recs, patchsets = setup
+    k = recs.rec.shape[0]
+    live = k if live is None else live
+    full_n = torch.tensor(k, dtype=torch.int32)
+    count = torch.tensor(live, dtype=torch.int32)
+    kw = dict(ori_radius=tpatch.max_orientation_radius(tcfg))
+    full = tori.raw_histograms(ss.flat, recs, full_n, **kw)
+    hist = tori.raw_histograms(ss.flat, recs, count, **kw)
+    assert torch.equal(hist[:live], full[:live])
+    assert torch.count_nonzero(hist[live:]) == 0
+    kw = dict(desc_radius=tpatch.max_descriptor_radius(tcfg),
+              use_vlfeat=False, chunk=16)
+    full = tdesc.raw_descriptors(ss.flat, recs, full_n, **kw)
+    raw = tdesc.raw_descriptors(ss.flat, recs, count, **kw)
+    assert torch.equal(raw[:live], full[:live])
+    assert torch.count_nonzero(raw[live:]) == 0

@@ -31,6 +31,7 @@ from vulkansift_tpu.config import DescriptorFormat, SiftConfig
 from vulkansift_tpu.detector import SiftDetector as JaxSiftDetector
 import vulkansift_tpu_torch as vt
 from vulkansift_tpu_torch.pipeline import make_detect_fn
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = {
     "no_upsampling_ubc": (make_blob_image(96, 128, seed=5, nb_blobs=14),

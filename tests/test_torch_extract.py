@@ -22,6 +22,7 @@ from vulkansift_tpu.ops import pallas_frontend as jpf
 from vulkansift_tpu.ops import scale_space as jss
 from vulkansift_tpu_torch.ops import extract as tex
 from vulkansift_tpu_torch.ops import frontend as tfront
+from torch_threads import one_torch_thread  # noqa: F401
 
 THR = 0.04 / 3
 

@@ -15,6 +15,7 @@ import vulkansift_tpu_torch as vt
 from vulkansift_tpu_torch.errors import InvalidInputError
 from vulkansift_tpu_torch.ops import match
 from vulkansift_tpu_torch.pipeline import make_detect_batched, make_detect_fn
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _features(rng, n):

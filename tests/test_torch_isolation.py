@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: importing it (every module, the staged
-detector, ``parallel`` and ``sfm`` included, and chip_smoke.py's
-module-level code) loads no JAX and nothing of the JAX package, and its
-entry points refuse to drop quietly to the CPU when there is no CUDA."""
+detector, ``parallel``, ``sfm``, ``golden``, ``utils.native_io``, ``perf``
+and ``examples`` included, and chip_smoke.py's module-level code) loads no
+JAX, nothing of the JAX package and none of ``cv2``, ``matplotlib`` and
+``sklearn`` (which the card's machine lacks), and its entry points refuse
+to drop quietly to the CPU when there is no CUDA."""
 
 import os
 import subprocess
@@ -22,11 +24,19 @@ import vulkansift_tpu_torch.detector
 from vulkansift_tpu_torch.parallel import dp, mesh, ring_match, scaling
 from vulkansift_tpu_torch.sfm import (bundle_adjustment, checkpoint, geometry,
                                       metrics, pose_graph, reconstruction)
+import vulkansift_tpu_torch.golden.reference
+import vulkansift_tpu_torch.utils.native_io
+from vulkansift_tpu_torch.perf import harness, matching, parity, plot, runtime
+from vulkansift_tpu_torch.examples import (common, sift_detect,
+                                           sift_error_handling, sift_match,
+                                           sift_profile, sift_show_pyramid)
+import numpy as np
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.startswith("jax") or m.startswith("vulkansift_tpu.")
-             or m == "vulkansift_tpu" or m == "bench")
+             or m == "vulkansift_tpu" or m == "bench"
+             or m.split(".")[0] in ("cv2", "matplotlib", "sklearn"))
 print("BAD", bad)
 import torch
 assert not torch.cuda.is_available()
@@ -39,7 +49,9 @@ for make in (lambda: SiftInstance(),
              lambda: ring_match.make_ring_match_fn(None),
              lambda: mesh.init_distributed("tcp://localhost:1", 1, 0),
              lambda: reconstruction.reconstruct_sequence(
-                 [], geometry.Camera(1.0, 1.0, 0.0, 0.0))):
+                 [], geometry.Camera(1.0, 1.0, 0.0, 0.0)),
+             lambda: vulkansift_tpu_torch.features_from_numpy(
+                 np.zeros(1, vulkansift_tpu_torch.FEATURE_DTYPE), 4)):
     try:
         make()
     except DeviceError:
@@ -61,6 +73,6 @@ def test_port_imports_no_jax_and_needs_cuda_or_cpu():
     assert res.returncode == 0, res.stderr
     lines = res.stdout.splitlines()
     assert "BAD []" in lines, res.stdout
-    assert lines.count("RAISED") == 7, res.stdout
+    assert lines.count("RAISED") == 8, res.stdout
     assert "BUILD RAISED" in lines, res.stdout
     assert "RUNTIME DEVICE_ERROR" in lines, res.stdout

@@ -19,6 +19,7 @@ from vulkansift_tpu.golden import reference as gold
 from vulkansift_tpu.ops import match as jmatch
 from vulkansift_tpu.ops import pallas_match
 from vulkansift_tpu_torch.ops import match
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _rand_desc(rng, n):

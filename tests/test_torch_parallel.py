@@ -46,6 +46,7 @@ from vulkansift_tpu_torch.ops.match import match_2nn_fused
 from vulkansift_tpu_torch.parallel.mesh import spawn_ranks
 from vulkansift_tpu_torch.parallel.ring_match import (finish, fold_shards,
                                                      pad_rows)
+from torch_threads import one_torch_thread  # noqa: F401
 
 WORLD = 4
 CFG = SiftConfig(use_input_upsampling=False, max_nb_sift_per_buffer=512,

@@ -29,6 +29,7 @@ from vulkansift_tpu_torch.ops import extract as tex
 from vulkansift_tpu_torch.ops import frontend as tfront
 from vulkansift_tpu_torch.errors import InvalidConfigError, InvalidInputError
 from vulkansift_tpu_torch.pipeline import make_detect_fn
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 class _Feats:
@@ -196,10 +197,11 @@ def test_feature_bytes_round_trip_between_packages():
     assert vt.FEATURE_DTYPE.itemsize == 36 + 128
     j_back = jvs.features_to_numpy(jvs.features_from_numpy(arr, 512))
     assert j_back.tobytes() == arr.tobytes()
-    t_back = vt.features_to_numpy(vt.features_from_numpy(j_back, 512))
+    t_back = vt.features_to_numpy(vt.features_from_numpy(j_back, 512,
+                                                         device="cpu"))
     assert t_back.tobytes() == arr.tobytes()
     with pytest.raises(ValueError):
-        vt.features_from_numpy(arr, len(arr) - 1)
+        vt.features_from_numpy(arr, len(arr) - 1, device="cpu")
 
 
 def test_config_round_trip():

@@ -25,6 +25,7 @@ from vulkansift_tpu_torch.errors import DeviceError
 from vulkansift_tpu_torch.ops import blur, cuda_lib
 from vulkansift_tpu_torch.ops import gaussian as tgauss
 from vulkansift_tpu_torch.ops import scale_space as tss
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _cfgs(**kw):

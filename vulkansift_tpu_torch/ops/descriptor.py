@@ -89,11 +89,16 @@ def raw_descriptors(flat: torch.Tensor, recs: SampleRecords,
     chunks of ``chunk`` pairs to bound the (chunk, window, 32)
     intermediate."""
     k = recs.rec.shape[0]
+    # On the CPU the count costs nothing to read, so the chunks wholly past
+    # it (zero in the result) are skipped; on a device it stays there.
+    stop = min(k, int(count)) if flat.device.type == "cpu" else k
     parts = [_raw_chunk(flat, SampleRecords(recs.base[i:i + chunk],
                                             recs.rec[i:i + chunk]),
                         desc_radius=desc_radius, use_vlfeat=use_vlfeat)
-             for i in range(0, k, chunk)]
-    raw = torch.cat(parts) if parts else recs.rec.new_zeros((0, DESC_SIZE))
+             for i in range(0, stop, chunk)]
+    done = min(k, -(-stop // chunk) * chunk)
+    parts.append(recs.rec.new_zeros((k - done, DESC_SIZE)))
+    raw = torch.cat(parts)
     live = torch.arange(k, device=flat.device) < count
     return torch.where(live[:, None], raw, 0.0)
 

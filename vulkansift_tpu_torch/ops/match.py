@@ -115,6 +115,18 @@ def top2_plain(desc_a: torch.Tensor, count_a: Count, desc_b: torch.Tensor,
     na, nb = desc_a.shape[0], desc_b.shape[0]
     dev = desc_a.device
     i32, i64 = torch.int32, torch.int64
+    if dev.type == "cpu":
+        # On the CPU the counts cost nothing to read: A rows past count_a
+        # are dead and B tiles wholly past count_b cannot win, so neither
+        # is computed (the result is the same).
+        live = min(na, max(int(count_a), 0))
+        if live < na:
+            out = top2_plain(desc_a[:live], live, desc_b, count_b, tile=tile)
+            pad = na - live
+            return tuple(torch.cat([o, torch.full((pad,), fill, dtype=i32)])
+                         for o, fill in zip(out, (D2_INVALID, 0,
+                                                  D2_INVALID, 0)))
+        nb = min(nb, max(int(count_b), 0))
     invalid_key = D2_INVALID << 32
     a = desc_a.to(torch.float64)
     a_sq = a.square().sum(1).to(i64)

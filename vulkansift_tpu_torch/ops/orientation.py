@@ -37,8 +37,18 @@ def raw_histograms(flat: torch.Tensor, recs: SampleRecords, count: torch.Tensor,
     """Raw 36-bin histograms (K, 36) of the records; rows >= ``count`` are
     zero. ``ori_radius`` is the static window bound
     (:func:`.patches.max_orientation_radius`)."""
+    k = recs.rec.shape[0]
+    if flat.device.type == "cpu" and int(count) < k:
+        # On the CPU the count costs nothing to read: the rows past it are
+        # zero, so only the live ones are computed.
+        n = max(int(count), 0)
+        zeros = recs.rec.new_zeros((k - n, NB_ORI_HIST_BINS))
+        if n == 0:
+            return zeros
+        live = raw_histograms(flat, SampleRecords(recs.base[:n], recs.rec[:n]),
+                              count, ori_radius=ori_radius)
+        return torch.cat([live, zeros])
     rec = recs.rec
-    k = rec.shape[0]
     gx, gy, dx, dy, in_img = window_gradients(flat, recs, ori_radius)
     sig = rec[:, REC_SIG]
     slam = LAMBDA_ORIENTATION * sig

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .config import DESC_SIZE
+from .utils.device import DeviceLike, resolve_device
 
 # NumPy structured dtype bit-compatible with vksift_Feature
 # (reference: include/vulkansift/vulkansift_types.h:17-31).
@@ -71,7 +72,7 @@ class Features:
         return self.x.shape[-1]
 
     @staticmethod
-    def empty(capacity: int, device="cpu") -> "Features":
+    def empty(capacity: int, device: torch.device) -> "Features":
         def z(dtype, *shape):
             return torch.zeros((capacity,) + shape, dtype=dtype, device=device)
         f32, i32 = torch.float32, torch.int32
@@ -114,14 +115,17 @@ def features_to_numpy(feats: Features,
 
 
 def features_from_numpy(arr: np.ndarray, capacity: int,
-                        device="cpu") -> Features:
+                        device: DeviceLike = "cuda") -> Features:
     """Load a ``FEATURE_DTYPE`` structured array into a fixed-capacity set
-    (parity: vksift_uploadFeatures)."""
+    on ``device`` (parity: vksift_uploadFeatures). Like every entry point
+    it defaults to the card and raises :class:`DeviceError` without one;
+    ``device="cpu"`` places the set on the CPU."""
     if arr.dtype != FEATURE_DTYPE:
         raise ValueError("expected FEATURE_DTYPE structured array")
     n = arr.shape[0]
     if n > capacity:
         raise ValueError(f"{n} features exceed capacity {capacity}")
+    device = resolve_device(device)
 
     def pad(v: np.ndarray, dtype) -> torch.Tensor:
         out = np.zeros((capacity,) + v.shape[1:], dtype)
