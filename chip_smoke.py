@@ -8,7 +8,8 @@
 2. Builds the five kernels from ``vulkansift_tpu_torch/csrc`` into the
    git-ignored ``build/`` (nvcc, sm_90a, one process per source) and prints
    the build seconds.
-3. Detects a 1536x1024 textured frame and matches two buffers under
+3. Detects a 1536x1024 textured frame (eagerly and through the instance's
+   recorded program) and matches two buffers under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation
    inside a detect or a ``match_features``), then detects once more to get
    the main path's real inputs and holds each kernel against its plain
@@ -33,19 +34,28 @@
    ``cuobjdump``). Then one
    ``detect_features`` at
    ``nb_scales_per_octave=15`` on a 640x480 frame against the all-plain
-   pipeline.
+   pipeline. Then the recorded programs (``compiled.py``, CUDA graphs)
+   against the eager functions (``run_compiled``): a ``DetectProgram``'s
+   replays byte-equal to ``make_detect_fn`` with the pyramid, its first
+   result unchanged by later replays, its capture seconds and pool bytes,
+   frame ms eager and replayed; a bucketed detect (1500x1000 after two
+   exact resolutions takes the (1536, 1024, True) program) byte-equal to
+   the eager bucketed function, no feature outside 1500x1000; eviction at
+   ``detect_cache_size=2`` returning the evicted pool; a ``MatchProgram``
+   byte-equal to ``match_2nn_fused`` at 16384x16384 and ragged counts.
 4. Drives the detect path: ``SiftInstance.detect_features`` at 1536x1024
-   (upsampling, capacity 32768) into buffers 0 and 1, with every launch
-   counter set to 0 just before and read just after, and checks the result
-   against the same pipeline run with every wrapper forced to its plain
-   version.
+   (upsampling, capacity 32768) into buffers 0 and 1, each a replay of the
+   resolution's recorded program (recorded by one detect before), with
+   every launch counter set to 0 just before and read just after, and
+   checks the result against the same pipeline run with every wrapper
+   forced to its plain version.
 5. Drives the match path the same way: detect frame A into buffer 0 and
    frame B (A moved 7 px right and 5 px down) into buffer 1,
    ``match_features(0, 1)``, ``get_matches_number``, ``download_matches``
    and ``match_features(1, 0)`` for the cross-check; at least 90 % of the
    Lowe-0.75 cross-checked matches must land within 1.5 px of the known
-   translation, and the downloaded bytes must equal those of the same
-   matching with the plain version.
+   translation, the result must equal the eager ``match_2nn_fused``'s
+   byte for byte and the downloaded bytes those of the plain matcher.
 6. A short torch.profiler breakdown of three frames (device busy time,
    idle share, the kernels that take the most device time).
 7. Drives the later paths, each with the launch counters set to 0 just
@@ -87,7 +97,8 @@
    - ``utils.native_io`` built with g++ into ``build/``: a PGM of the
      frame decodes to its bytes natively and in Python, a feature file
      round-trips the frame's features.
-9. Prints the per-frame kernel sums, the launches by path and the kernel
+9. Prints the per-frame kernel sums, the launches by path (a path that
+   records a program counts its warm-up run) and the kernel
    table (launches summed over every path) as JSON lines, the total
    seconds, the card line, and as the last line ``{"ok": true, "device":
    {...}}``.
@@ -946,6 +957,214 @@ def check_match(parent) -> dict:
     return res
 
 
+# -- the recorded programs (CUDA graphs) ---------------------------------------
+
+def _same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                            b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+def _detect_tensors(out, gaussians=(), dogs=()) -> list:
+    """Every tensor of a detect's result: each Features field over the
+    whole capacity, ``lost``, the per-octave counts and the pyramid."""
+    return ([getattr(out.features, f.name)
+             for f in dataclasses.fields(vt.Features)]
+            + [out.lost, out.per_octave_counts, *gaussians, *dogs])
+
+
+def _same_results(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(_same_bytes(x, y) for x, y in zip(a, b))
+
+
+def _reserved_after_release() -> int:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+BUCKET_FRAME = (1500, 1000)            # pads to the (1536, 1024) bucket
+EVICT_SIZES = ((1536, 1024), (1280, 960), (1024, 768))
+# Memory the caching allocator may keep beside the programs' pools: the
+# buffers' results and the static inputs, each of 1-10 MB, are carved out
+# of 20 MB segments, which a live block keeps reserved.
+EVICT_SLACK = 128 << 20
+
+
+def run_compiled(img: np.ndarray, detect) -> dict:
+    """The recorded programs (``compiled.py``) against the eager functions
+    on the card:
+    - ``DetectProgram`` at the headline configuration with the pyramid:
+      three replays (the frame, its translate, the frame) byte-equal to
+      the eager ``make_detect_fn`` (every Features row of the capacity,
+      the count, ``lost``, the per-octave counts, the pyramid), the first
+      result unchanged by the later replays, the replays' launches those
+      of the capture; its warm-up and capture + instantiate seconds, the
+      bytes its pool holds; frame ms eager and replayed in turns, and the
+      replay's device ms;
+    - a bucketed detect: an instance given two exact resolutions, then
+      1500x1000, which takes the (1536, 1024, True) program; its buffer
+      byte-equal to the eager bucketed function on the padded frame, no
+      feature outside 1500x1000, the bucket's octave plan;
+    - eviction: ``detect_cache_size=2`` over three resolutions, the
+      memory reserved after each; the evicted program's pool is returned,
+      and all of it when the instance closes;
+    - ``MatchProgram`` at 16384x16384 and at count_a 16284, count_b 16001
+      byte-equal to the eager ``match_2nn_fused``; match ms both ways."""
+    from vulkansift_tpu_torch.compiled import DetectProgram, MatchProgram
+    from vulkansift_tpu_torch.pipeline import DetectOutput, octave_plan
+    cfg = vt.SiftConfig(use_input_upsampling=True,
+                        max_nb_sift_per_buffer=CAPACITY)
+    res = {}
+    reserved0 = _reserved_after_release()
+    prog = DetectProgram(cfg, W, H, device="cuda", return_pyramid=True)
+    reserved1 = torch.cuda.memory_reserved()
+    img_b = shifted(img, *SHIFT)
+    zero_launches()
+    got = prog(img)
+    got_b = prog(img_b)
+    got_2 = prog(img)
+    launches = read_launches()
+    check(launches == {k: 3 * prog.launches.get(WRAPPERS[k].__name__, 0)
+                       for k in WRAPPERS}
+          and [launches[k] for k in DETECT_KERNELS] == [3 * 36, 3 * 7, 3, 3],
+          f"detect program: launches {launches} for 3 replays of "
+          f"{prog.launches}")
+    ref, ref_b = detect(img), detect(img_b)
+    check(_same_results(_detect_tensors(*got_b), _detect_tensors(*ref_b))
+          and _same_results(_detect_tensors(*got_2), _detect_tensors(*ref)),
+          "detect program: a replay differs from the eager function")
+    check(_same_results(_detect_tensors(*got), _detect_tensors(*ref)),
+          "detect program: the first result changed under later replays")
+    check(not _same_results(_detect_tensors(*got_b), _detect_tensors(*got)),
+          "detect program: the translate gave the frame's result")
+
+    def frame_ms(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(img)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    eager_ms, graph_ms = [], []
+    img_dev = torch.from_numpy(img).cuda()
+    for _ in range(TIMED_FRAMES):
+        eager_ms.append(frame_ms(detect))
+        graph_ms.append(frame_ms(prog))
+    res["detect"] = dict(
+        count=int(got[0].features.count), launches=launches,
+        launches_per_replay=prog.launches,
+        warmup_s=prog.warmup_seconds, capture_instantiate_s=prog.capture_seconds,
+        pool_bytes=prog.pool_bytes, reserved_before=reserved0,
+        reserved_after_capture=reserved1,
+        output_bytes_per_call=prog.output_bytes,
+        eager_frame_ms_median=statistics.median(eager_ms),
+        graph_frame_ms_median=statistics.median(graph_ms),
+        # From an input on the card: no host staging between the calls.
+        graph_device_ms=device_ms(lambda: prog(img_dev), 5),
+        eager_frame_ms=eager_ms, graph_frame_ms=graph_ms)
+    print("compiled_detect " + json.dumps(
+        {k: v for k, v in res["detect"].items()
+         if k not in ("eager_frame_ms", "graph_frame_ms")}), flush=True)
+    prog.close()
+    del prog, got, got_b, got_2, ref, ref_b
+
+    inst = vt.SiftInstance(cfg, device="cuda")
+    for w, h in ((640, 480), (800, 600)):
+        inst.detect_features(bench_image(h, w, seed=2), 0)
+    bw, bh = BUCKET_FRAME
+    img_k = bench_image(bh, bw, seed=4)
+    inst.detect_features(img_k, 1)
+    key = (1536, 1024, True)
+    keys = list(inst._detect_cache)
+    check(keys == [(640, 480, False), (800, 600, False), key],
+          f"bucketing: cache keys {keys}")
+    buf = inst._buffers[1]
+    ref = make_detect_fn(cfg, 1536, 1024, return_pyramid=True, device="cuda",
+                         bucket=64)(
+        np.pad(img_k, ((0, 1024 - bh), (0, 1536 - bw)), mode="edge"), bw, bh)
+    check(_same_results(
+        _detect_tensors(DetectOutput(buf.features, buf.lost,
+                                     buf.per_octave_counts),
+                        buf.gaussians, buf.dogs), _detect_tensors(*ref)),
+        "bucketed program differs from the eager bucketed function")
+    feats = inst.download_features(1)
+    check(len(feats) > 0 and bool((feats["x"] < bw).all())
+          and bool((feats["y"] < bh).all()),
+          f"bucketed detect: {len(feats)} features, some outside {bw}x{bh}")
+    plan = [inst.get_scale_space_octave_resolution(o, 1)
+            for o in range(inst.get_scale_space_nb_octaves(1))]
+    check(plan == list(octave_plan(cfg, 1536, 1024, 64)),
+          f"bucketed detect: octave plan {plan}")
+    res["bucket"] = dict(frame=f"{bw}x{bh}", key=list(key),
+                         features=len(feats), octaves=plan,
+                         pool_bytes=inst._detect_cache[key].pool_bytes)
+    print("compiled_bucket " + json.dumps(res["bucket"]), flush=True)
+    inst.close()
+    del inst, buf, ref
+
+    ecfg = dataclasses.replace(cfg, detect_cache_size=2, resolution_bucket=1,
+                               retain_pyramid=False)
+    base = _reserved_after_release()
+    base_alloc = torch.cuda.memory_allocated()
+    inst = vt.SiftInstance(ecfg, device="cuda")
+    steps = []
+    for w, h in EVICT_SIZES:
+        inst.detect_features(bench_image(h, w, seed=0), 0)
+        steps.append(dict(
+            size=f"{w}x{h}", keys=[list(k) for k in inst._detect_cache],
+            pool_bytes=inst._detect_cache[(w, h, False)].pool_bytes,
+            reserved=_reserved_after_release() - base,
+            allocated=torch.cuda.memory_allocated() - base_alloc))
+    inst.close()
+    del inst
+    closed = _reserved_after_release() - base
+    res["eviction"] = dict(steps=steps, reserved_after_close=closed)
+    print("compiled_eviction " + json.dumps(res["eviction"]), flush=True)
+    pools = [st["pool_bytes"] for st in steps]
+    check([tuple(k) for k in steps[-1]["keys"]]
+          == [(*EVICT_SIZES[1], False), (*EVICT_SIZES[2], False)],
+          f"eviction: keys {steps[-1]['keys']}")
+    # Evicting the first program returns its pool: the third program's
+    # build adds its own pool less the first's.
+    check(steps[2]["reserved"] - steps[1]["reserved"]
+          <= pools[2] - pools[0] + EVICT_SLACK,
+          f"eviction: reserved {steps[1]['reserved']} -> "
+          f"{steps[2]['reserved']} bytes (pools {pools})")
+    check(closed <= EVICT_SLACK, f"close: {closed} bytes still reserved")
+
+    a, b = _rand_desc(0, MATCH_N), _rand_desc(1, MATCH_N)
+    mprog = MatchProgram(MATCH_N, MATCH_N, device="cuda")
+    match_cases, match_launches = {}, dict.fromkeys(WRAPPERS, 0)
+    for what, ca, cb in (("16k", MATCH_N, MATCH_N),
+                         ("ragged", MATCH_N - 100, FOLD_COUNT_B)):
+        zero_launches()
+        m = mprog(a, _cuda_count(ca), b, _cuda_count(cb))
+        launches = read_launches()
+        ref = match_mod.match_2nn_fused(a, ca, b, cb)
+        fields = [f.name for f in dataclasses.fields(vt.Matches2NN)]
+        check(_same_results([getattr(m, f) for f in fields],
+                            [getattr(ref, f) for f in fields])
+              and launches["match_2nn"] == 1,
+              f"match program {what}: differs from match_2nn_fused, or "
+              f"launches {launches}")
+        match_cases[what] = [ca, cb]
+        for k, v in launches.items():
+            match_launches[k] += v
+    ca, cb = _cuda_count(MATCH_N), _cuda_count(MATCH_N)
+    res["match"] = dict(
+        cases=match_cases, launches=match_launches,
+        warmup_s=mprog.warmup_seconds,
+        capture_instantiate_s=mprog.capture_seconds,
+        pool_bytes=mprog.pool_bytes,
+        eager_ms=median_ms(lambda: match_mod.match_2nn_fused(a, ca, b, cb),
+                           TIMED_FRAMES),
+        graph_ms=median_ms(lambda: mprog(a, ca, b, cb), TIMED_FRAMES))
+    print("compiled_match " + json.dumps(res["match"]), flush=True)
+    mprog.close()
+    return res
+
+
 # -- the slice ------------------------------------------------------------------
 
 def compare_with_plain(feats: np.ndarray, plain: np.ndarray) -> dict:
@@ -984,6 +1203,11 @@ def run_slice(img: np.ndarray) -> dict:
     cfg = vt.SiftConfig(use_input_upsampling=True,
                         max_nb_sift_per_buffer=CAPACITY)
     inst = vt.SiftInstance(cfg, device="cuda")
+    # The first detect records the program (warm-up, capture): the counted
+    # frames below are replays.
+    inst.detect_features(img, 0)
+    torch.cuda.synchronize()
+    prog = inst._detect_cache[(W, H, False)]
     for w in WRAPPERS.values():
         w.launches = 0
     frames = 0
@@ -1034,6 +1258,9 @@ def run_slice(img: np.ndarray) -> dict:
                frame_ms_median=statistics.median(t_detect),
                frame_ms_with_download_median=statistics.median(t_download),
                frame_ms=t_detect, frame_ms_with_download=t_download,
+               program=dict(warmup_s=prog.warmup_seconds,
+                            capture_instantiate_s=prog.capture_seconds,
+                            pool_bytes=prog.pool_bytes),
                plain_comparison=cmp)
     print("slice " + json.dumps(res), flush=True)
     return res
@@ -1079,6 +1306,11 @@ def run_match(img: np.ndarray, parent) -> dict:
                         max_nb_sift_per_buffer=CAPACITY)
     inst = vt.SiftInstance(cfg, device="cuda")
     img_b = shifted(img, *SHIFT)
+    # Record the detect and match programs first: the counted run below
+    # replays them.
+    inst.detect_features(img, 0)
+    inst.match_features(0, 0)
+    torch.cuda.synchronize()
     for w in WRAPPERS.values():
         w.launches = 0
     inst.detect_features(img, 0)
@@ -1086,6 +1318,7 @@ def run_match(img: np.ndarray, parent) -> dict:
     inst.match_features(0, 1)
     n_match = inst.get_matches_number()
     m_ab = inst.download_matches()
+    replayed = inst._matches
     inst.match_features(1, 0)
     m_ba = inst.download_matches()
     torch.cuda.synchronize()
@@ -1094,6 +1327,14 @@ def run_match(img: np.ndarray, parent) -> dict:
           + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was not launched on the match path")
+    fa_t, fb_t = inst._buffers[0].features, inst._buffers[1].features
+    eager = match_mod.match_2nn_fused(fa_t.descriptor, fa_t.count,
+                                      fb_t.descriptor, fb_t.count)
+    fields = [f.name for f in dataclasses.fields(vt.Matches2NN)]
+    check(_same_results([getattr(replayed, f) for f in fields],
+                        [getattr(eager, f) for f in fields]),
+          "match_features (a MatchProgram replay) differs from the eager "
+          "match_2nn_fused")
 
     n_a, n_b = inst.get_features_number(0), inst.get_features_number(1)
     check(n_a > 0 and n_b > 0, "no features detected")
@@ -1116,15 +1357,13 @@ def run_match(img: np.ndarray, parent) -> dict:
           f"of {n_a}, {share:.6f} within 1.5 px of {SHIFT}", flush=True)
     check(share >= 0.9, f"translation share {share} < 0.9")
 
-    with cuda_lib.force_plain():
-        inst.match_features(0, 1)
-        plain = inst.download_matches()
+    plain = vt.matches_to_numpy(match_mod.match_2nn(
+        fa_t.descriptor, fa_t.count, fb_t.descriptor, fb_t.count), n_a)
     check(plain.tobytes() == m_ab.tobytes(),
           "download_matches bytes differ from the plain matcher's")
 
     # The kernel alone on the frame's buffers: live counts (n_a, n_b) read
     # on the device, launched at the capacity.
-    fa_t, fb_t = inst._buffers[0].features, inst._buffers[1].features
     def kernel():
         return match_mod.match_2nn_tiles(fa_t.descriptor, fa_t.count,
                                          fb_t.descriptor, fb_t.count)
@@ -1876,8 +2115,10 @@ def run_examples(img: np.ndarray) -> dict:
     for name, v in launches.items():
         for k in DETECT_KERNELS:
             check(v[k] > 0, f"{name} did not launch {k}")
-    check(launches["example_sift_match"]["match_2nn"] == 2,
-          "sift_match did not launch match_2nn twice")
+    # Two match_features replays and the warm-up of the MatchProgram that
+    # the first one records.
+    check(launches["example_sift_match"]["match_2nn"] == 3,
+          "sift_match did not launch match_2nn three times")
     print("examples " + json.dumps(res), flush=True)
     return dict(results=res, launches=launches, features=feats)
 
@@ -1995,14 +2236,16 @@ def main() -> int:
     torch.cuda.set_sync_debug_mode("error")
     try:
         detect(img)
+        sync_inst.detect_features(img, 0)
         sync_inst.match_features(0, 1)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     check(sync_inst.get_matches_number()
           == sync_inst.get_features_number(0), "sync-check match count")
     del sync_inst
-    print("sync check: one detect and one match_features ran with no host "
-          "synchronisation", flush=True)
+    print("sync check: one detect, one detect_features (a program replay) "
+          "and one match_features ran with no host synchronisation",
+          flush=True)
     cap = {}
     out, gaussians, dogs = detect(img, capture=cap)
     torch.cuda.synchronize()
@@ -2026,6 +2269,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_many_scales()
     torch.cuda.empty_cache()
+    res_compiled = run_compiled(img, detect)
+    torch.cuda.empty_cache()
     res = run_slice(img)
     res_match = run_match(img, parent)
     profile_frames(img)
@@ -2034,7 +2279,9 @@ def main() -> int:
 
     # Launches of every path's driven run, each counted from 0.
     md = later["multi_device"]
-    paths = {"detect": res["launches"], "match": res_match["launches"],
+    paths = {"compiled_detect": res_compiled["detect"]["launches"],
+             "compiled_match": res_compiled["match"]["launches"],
+             "detect": res["launches"], "match": res_match["launches"],
              "staged": later["staged"]["launches"],
              "trace": later["trace"]["launches"],
              "dp_detect": md["dp_launches"],

@@ -12,10 +12,25 @@ DoG stacks of its last detect for the scale-space debug APIs.
 ``load_runtime``, ``unload_runtime`` and ``get_available_devices`` probe
 ``torch.cuda``. ``start_trace`` / ``stop_trace``, the JAX package's XProf
 hooks, run ``torch.profiler`` and write a Chrome trace.
+
+As the JAX instance compiles one program per detect resolution, a card
+instance records one :class:`~.compiled.DetectProgram` (a CUDA graph) per
+key ``(width, height, bucketed)`` and keeps them in an LRU of
+``config.detect_cache_size``; ``match_features`` replays a
+:class:`~.compiled.MatchProgram` per pair of buffer capacities.
+``config.resolution_bucket`` bounds the keys as in the JAX package: 0
+(AUTO, the default) gives the first two distinct resolutions exact
+programs and edge-pads every later new one to a multiple of 64; a value
+above 1 pads every resolution to a multiple of it. A bucketed program
+drops the keypoints found in the padding and may run one octave fewer;
+each buffer records the octave plan that ran. A CPU instance
+(``device="cpu"``) keeps the eager functions in the same cache under the
+same keys.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import time
@@ -24,6 +39,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .compiled import DetectProgram, MatchProgram
 from .config import SiftConfig, get_default_config
 from .errors import DeviceError, InvalidInputError, Result
 from .ops.match import match_2nn_fused
@@ -32,6 +48,13 @@ from .types import (FEATURE_DTYPE, Features, Matches2NN, features_from_numpy,
                     features_to_numpy, matches_to_numpy)
 from .utils.device import DeviceLike, resolve_device
 from .utils.logging import logger
+
+# AUTO resolution bucketing (config.resolution_bucket == 0), as
+# vulkansift_tpu/instance.py: the number of distinct resolutions that get
+# exact programs before new ones switch to bucketed programs, and the
+# bucket they then use.
+_AUTO_EXACT = 2
+_AUTO_BUCKET = 64
 
 
 def load_runtime() -> Result:
@@ -67,7 +90,11 @@ class _BufferState:
     per_octave_counts: object = ()
     lost: object = None
     done: Optional[torch.cuda.Event] = None
-    # The octave plan and pyramid of the last detect, for the debug APIs.
+    input_width: int = 0
+    input_height: int = 0
+    # The octave plan that the last detect ran (under bucketing, the padded
+    # resolution's, which can be one octave short of the exact one's) and
+    # its pyramid, for the debug APIs.
     octave_resolutions: Tuple[Tuple[int, int], ...] = ()
     gaussians: Optional[tuple] = None
     dogs: Optional[tuple] = None
@@ -109,7 +136,13 @@ class SiftInstance:
         except DeviceError:
             self._dispatch_error(Result.DEVICE_ERROR)
             raise
-        self._detect_fns: Dict[Tuple[int, int], object] = {}
+        # (width, height, bucketed) -> DetectProgram (card) or the eager
+        # detect function (CPU), least recently used first.
+        self._detect_cache: collections.OrderedDict = \
+            collections.OrderedDict()
+        # Resolutions given exact programs in AUTO bucketing mode.
+        self._exact_resolutions: set = set()
+        self._match_programs: Dict[Tuple[int, int], MatchProgram] = {}
         self._buffers = [
             _BufferState(features=Features.empty(
                 config.max_nb_sift_per_buffer, self.device))
@@ -123,7 +156,11 @@ class SiftInstance:
     def close(self) -> None:
         """Parity: vksift_destroyInstance."""
         self._buffers = []
-        self._detect_fns = {}
+        for prog in (*self._detect_cache.values(),
+                     *self._match_programs.values()):
+            _release(prog)
+        self._detect_cache.clear()
+        self._match_programs.clear()
         self._matches = None
         self._closed = True
 
@@ -166,14 +203,39 @@ class SiftInstance:
                 f"{self.config.input_image_max_size}")
         if min(width, height) < 32:
             raise self._invalid("image dimensions must be >= 32")
-        key = (width, height)
+        b = self.config.resolution_bucket
+        if b == 0:
+            # AUTO: the first _AUTO_EXACT distinct resolutions get exact
+            # programs; any later new one takes a bucket-64 program, so a
+            # mixed-resolution sweep records a bounded set.
+            if ((width, height) in self._exact_resolutions
+                    or len(self._exact_resolutions) < _AUTO_EXACT):
+                self._exact_resolutions.add((width, height))
+                b = 1
+            else:
+                b = _AUTO_BUCKET
+        valid_w, valid_h = width, height
+        bucketed = b > 1
+        if bucketed and (width % b or height % b):
+            image = np.pad(image, ((0, -height % b), (0, -width % b)),
+                           mode="edge")
+            height, width = image.shape
+        # An exact (W, H) program and a bucketed one padded to the same
+        # (W, H) take different arguments: the flag is part of the key.
+        key = (width, height, bucketed)
         try:
-            if key not in self._detect_fns:
-                self._detect_fns[key] = make_detect_fn(
-                    self.config, width, height,
-                    return_pyramid=self.config.retain_pyramid,
-                    device=self.device)
-            out = self._detect_fns[key](image)
+            if key in self._detect_cache:
+                self._detect_cache.move_to_end(key)
+            else:
+                # Evict before building, so that the evicted program's pool
+                # is free for the new one.
+                while (len(self._detect_cache)
+                       >= self.config.detect_cache_size):
+                    _release(self._detect_cache.popitem(last=False)[1])
+                self._detect_cache[key] = self._build_detect(
+                    width, height, b)
+            args = (image, valid_w, valid_h) if bucketed else (image,)
+            out = self._detect_cache[key](*args)
         except InvalidInputError:
             raise
         except Exception as e:  # noqa: BLE001
@@ -186,12 +248,27 @@ class SiftInstance:
         buf.count = None
         buf.per_octave_counts = out.per_octave_counts
         buf.lost = out.lost
-        buf.octave_resolutions = octave_plan(self.config, width, height)
+        buf.input_width, buf.input_height = valid_w, valid_h
+        buf.octave_resolutions = octave_plan(self.config, width, height, b)
         buf.gaussians, buf.dogs = gauss, dogs
         buf.done = None
         if self.device.type == "cuda":
             buf.done = torch.cuda.Event()
             buf.done.record(torch.cuda.current_stream(self.device))
+
+    def _build_detect(self, width: int, height: int, bucket: int) -> Callable:
+        """The recorded program of one key on a card, the eager function on
+        the CPU."""
+        kw = dict(return_pyramid=self.config.retain_pyramid,
+                  device=self.device, bucket=bucket)
+        if self.device.type != "cuda":
+            return make_detect_fn(self.config, width, height, **kw)
+        prog = DetectProgram(self.config, width, height, **kw)
+        logger.debug("detect program %dx%d (bucket %d): warm-up %.3f s, "
+                     "capture %.3f s, pool %d bytes", width, height, bucket,
+                     prog.warmup_seconds, prog.capture_seconds,
+                     prog.pool_bytes)
+        return prog
 
     # -- matching -------------------------------------------------------
     def match_features(self, buffer_id_a: int, buffer_id_b: int) -> None:
@@ -200,10 +277,18 @@ class SiftInstance:
         stay on the device and the matcher reads them there."""
         buf_a = self._check_buffer(buffer_id_a)
         buf_b = self._check_buffer(buffer_id_b)
+        fa, fb = buf_a.features, buf_b.features
         try:
-            self._matches = match_2nn_fused(
-                buf_a.features.descriptor, buf_a.features.count,
-                buf_b.features.descriptor, buf_b.features.count)
+            if self.device.type == "cuda":
+                key = (fa.capacity, fb.capacity)
+                if key not in self._match_programs:
+                    self._match_programs[key] = MatchProgram(
+                        *key, device=self.device)
+                self._matches = self._match_programs[key](
+                    fa.descriptor, fa.count, fb.descriptor, fb.count)
+            else:
+                self._matches = match_2nn_fused(fa.descriptor, fa.count,
+                                                fb.descriptor, fb.count)
         except InvalidInputError:
             raise
         except Exception as e:  # noqa: BLE001
@@ -276,6 +361,7 @@ class SiftInstance:
         # Uploaded features carry no scale-space: the debug APIs must not
         # answer for an earlier detect into this buffer.
         buf.per_octave_counts = ()
+        buf.input_width = buf.input_height = 0
         buf.octave_resolutions = ()
         buf.gaussians = buf.dogs = None
 
@@ -355,3 +441,10 @@ class SiftInstance:
             log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
         prof.export_chrome_trace(path)
         return path
+
+
+def _release(prog) -> None:
+    """Free a cached program's graph and pool (an eager function holds
+    none)."""
+    if isinstance(prog, (DetectProgram, MatchProgram)):
+        prog.close()

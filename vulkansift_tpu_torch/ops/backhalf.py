@@ -97,7 +97,7 @@ def orientation_hist(flat: torch.Tensor, recs: SampleRecords,
         cuda_lib.entry("orientation_hist", "vks_orientation_hist",
                        _HIST_ARGTYPES), flat, recs, count, ori_radius,
         "orientation_hist")
-    orientation_hist.launches += 1
+    cuda_lib.count_launch(orientation_hist)
     return hist
 
 
@@ -137,7 +137,7 @@ def descriptor(flat: torch.Tensor, recs: SampleRecords, count: torch.Tensor,
     desc = _launch_descriptor(
         cuda_lib.entry("descriptor", "vks_descriptor", _DESC_ARGTYPES), flat,
         recs, count, desc_radius, use_vlfeat, "descriptor")
-    descriptor.launches += 1
+    cuda_lib.count_launch(descriptor)
     return desc
 
 

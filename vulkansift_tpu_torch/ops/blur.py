@@ -103,7 +103,7 @@ def blur_dog(x: torch.Tensor, taps: Sequence[float], with_dog: bool = True,
                     0 if dog is None else dog.data_ptr(),
                     t_np.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
                     len(t_np), h, w)
-    blur_dog.launches += 1
+    cuda_lib.count_launch(blur_dog)
     return y, dog
 
 

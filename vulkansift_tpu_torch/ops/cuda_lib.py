@@ -19,6 +19,11 @@ CUDA tensor reaches a plain version is an explicit :func:`force_plain`
 block, which exists so that a run on the card can compare the whole
 pipeline with its plain counterpart; the block holds for its own thread
 only.
+
+Every wrapper counts its launches in its ``launches`` attribute through
+:func:`count_launch`. A launch made while its thread records a CUDA graph
+(:func:`recording`) runs no kernel: it goes to the recording, which the
+graph's owner adds to the counts at each replay.
 """
 
 from __future__ import annotations
@@ -59,7 +64,7 @@ def nvcc_flags(name: str) -> Tuple[str, ...]:
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
-_local = threading.local()  # .force_plain, set inside force_plain()
+_local = threading.local()  # .force_plain, .recording (see below)
 
 
 def nvcc_path() -> str:
@@ -185,6 +190,29 @@ def force_plain() -> Iterator[None]:
         yield
     finally:
         _local.force_plain = prev
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` for a launch of its kernel; inside
+    :func:`recording` on this thread, add it to the recording instead."""
+    rec = getattr(_local, "recording", None)
+    if rec is None:
+        wrapper.launches += 1
+    else:
+        rec[wrapper] = rec.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Dict[object, int]]:
+    """Collect the calling thread's launches inside the block as ``{wrapper:
+    launches}`` without counting them (a CUDA graph's capture, whose
+    launches run only when it is replayed)."""
+    prev = getattr(_local, "recording", None)
+    _local.recording = rec = {}
+    try:
+        yield rec
+    finally:
+        _local.recording = prev
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -42,7 +42,7 @@ def frontend(dog: torch.Tensor, dog_threshold: float
     fn = cuda_lib.entry("frontend", "vks_frontend", _ARGTYPES)
     cuda_lib.launch(fn, dog, "frontend", dog.data_ptr(), code.data_ptr(),
                     counts.data_ptr(), ns, h, w, thr08)
-    frontend.launches += 1
+    cuda_lib.count_launch(frontend)
     return code, counts
 
 

@@ -188,7 +188,7 @@ def match_2nn_tiles(desc_a: torch.Tensor, count_a: Count,
     cuda_lib.launch(fn, desc_a, "match_2nn", desc_a.data_ptr(),
                     cnt_a.data_ptr(), desc_b.data_ptr(), cnt_b.data_ptr(),
                     *(o.data_ptr() for o in out), na, nb)
-    match_2nn_tiles.launches += 1
+    cuda_lib.count_launch(match_2nn_tiles)
     return out
 
 

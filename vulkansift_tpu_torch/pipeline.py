@@ -43,34 +43,53 @@ def _empty_output(capacity: int, nb_oct: int, device) -> DetectOutput:
                         torch.zeros(nb_oct, dtype=torch.int32, device=device))
 
 
-def octave_plan(config: SiftConfig, width: int,
-                height: int) -> Tuple[Tuple[int, int], ...]:
+def octave_plan(config: SiftConfig, width: int, height: int,
+                bucket: int = 1) -> Tuple[Tuple[int, int], ...]:
     """The per-octave (width, height) sizes the detect function runs for
-    this resolution (parity: ``pipeline.octave_plan`` with ``bucket=1``:
-    the port always runs at the exact resolution)."""
-    return config.octave_resolutions(width, height)
+    this (possibly bucket-padded) resolution (parity:
+    ``pipeline.octave_plan``). Under bucketing (``bucket > 1``) the octave
+    count comes from the smallest resolution that pads to this one (one
+    program serves the whole bucket), so it can be one less than the
+    exact resolution's; the instance records this plan per buffer."""
+    oct_res = config.octave_resolutions(width, height)
+    if bucket > 1:
+        n_cap = config.max_octaves_for(max(width - bucket + 1, 32),
+                                       max(height - bucket + 1, 32))
+        oct_res = oct_res[:n_cap]
+    return oct_res
 
 
 def make_detect_fn(config: SiftConfig, width: int, height: int, *,
-                   return_pyramid: bool = False, device: DeviceLike = "cuda"):
+                   return_pyramid: bool = False, device: DeviceLike = "cuda",
+                   bucket: int = 1):
     """Build the detect function for one static resolution.
 
-    Returns ``detect(image_u8, capture=None) -> DetectOutput`` (or
-    ``(DetectOutput, gaussians, dogs)`` with ``return_pyramid``). The image
-    is an (H, W) uint8 array or tensor; it is moved to the function's
-    device. ``capture``, a dict, receives the back half's kernel inputs
-    (see :func:`.ops.backhalf.run_backhalf`), for comparisons on the card.
+    Returns ``detect(image_u8, valid_w=None, valid_h=None, capture=None)
+    -> DetectOutput`` (or ``(DetectOutput, gaussians, dogs)`` with
+    ``return_pyramid``). The image is an (H, W) uint8 array or tensor; it
+    is moved to the function's device. ``capture``, a dict, receives the
+    back half's kernel inputs (see :func:`.ops.backhalf.run_backhalf`), for
+    comparisons on the card.
+
+    ``bucket > 1`` builds the function of a resolution bucket (parity:
+    ``pipeline.make_detect_fn(bucket=...)``): the image is the bucket-sized
+    (edge-padded) frame, the octave plan is :func:`octave_plan`'s for the
+    bucket, and ``valid_w`` / ``valid_h`` (Python numbers or scalar tensors
+    on the device, so that one recorded program serves every size in the
+    bucket) drop the keypoints found in the padding before the back half.
     """
     cfg = config
     dev = resolve_device(device, cfg.device_index)
     s = cfg.nb_scales_per_octave
-    oct_res = octave_plan(cfg, width, height)
+    bucketed = bucket > 1
+    oct_res = octave_plan(cfg, width, height, bucket)
     nb_oct = len(oct_res)
     caps = cfg.octave_section_capacities(nb_oct)
     oct_shapes = tuple((h, w) for (w, h) in oct_res)
     capacity = cfg.max_nb_sift_per_buffer
 
-    def detect(image_u8, capture: Optional[Dict] = None):
+    def detect(image_u8, valid_w=None, valid_h=None,
+               capture: Optional[Dict] = None):
         img = image_u8 if isinstance(image_u8, torch.Tensor) \
             else torch.from_numpy(np.ascontiguousarray(image_u8))
         if img.device.type == "cpu" and dev.type == "cuda":
@@ -98,6 +117,10 @@ def make_detect_fn(config: SiftConfig, width: int, height: int, *,
                 seed_sigma=cfg.seed_scale_sigma,
                 octave_idx=o - (1 if cfg.use_input_upsampling else 0),
                 code=code))
+        if bucketed and valid_w is not None:
+            # Drop the keypoints found in the bucket's padding.
+            refined = [r._replace(valid=r.valid & (r.x < valid_w)
+                                  & (r.y < valid_h)) for r in refined]
 
         fields, count, per_octave, lost = backhalf.run_backhalf(
             ss.flat, ss.offsets, refined, config=cfg, oct_res=oct_res,
