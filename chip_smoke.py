@@ -41,8 +41,11 @@
    frame ms eager and replayed; a bucketed detect (1500x1000 after two
    exact resolutions takes the (1536, 1024, True) program) byte-equal to
    the eager bucketed function, no feature outside 1500x1000; eviction at
-   ``detect_cache_size=2`` returning the evicted pool; a ``MatchProgram``
-   byte-equal to ``match_2nn_fused`` at 16384x16384 and ragged counts.
+   ``detect_cache_size=2`` over three resolutions holding no more memory
+   than the first (largest) program did, all of it returned at
+   ``close()``; the memory of a default instance over a sweep of nine
+   resolutions up to 3456x2304; a ``MatchProgram`` byte-equal to
+   ``match_2nn_fused`` at 16384x16384 and ragged counts.
 4. Drives the detect path: ``SiftInstance.detect_features`` at 1536x1024
    (upsampling, capacity 32768) into buffers 0 and 1, each a replay of the
    resolution's recorded program (recorded by one detect before), with
@@ -985,10 +988,53 @@ def _reserved_after_release() -> int:
 
 BUCKET_FRAME = (1500, 1000)            # pads to the (1536, 1024) bucket
 EVICT_SIZES = ((1536, 1024), (1280, 960), (1024, 768))
-# Memory the caching allocator may keep beside the programs' pools: the
-# buffers' results and the static inputs, each of 1-10 MB, are carved out
-# of 20 MB segments, which a live block keeps reserved.
-EVICT_SLACK = 128 << 20
+# Memory the caching allocator may keep beside the instance's pool: a later
+# program's static input and the buffer's new results, each of 1-10 MB,
+# are carved out of 20 MB segments, which a live block keeps reserved. Two
+# builds that each left a cuBLAS workspace (32 MiB) behind exceed it.
+EVICT_SLACK = 40 << 20
+# After close(): less than one cuBLAS workspace.
+CLOSE_SLACK = 24 << 20
+# A default instance (AUTO bucketing, detect_cache_size 8, pyramid
+# retained) over a mixed-resolution sweep, largest first: two exact
+# programs, then seven bucketed ones, the last of which evicts the first.
+SWEEP_SIZES = ((3456, 2304), (2592, 1728), (1920, 1080), (1600, 1200),
+               (1536, 1024), (1280, 960), (1024, 768), (800, 600),
+               (640, 480))
+
+
+def _memory_sweep(cfg) -> dict:
+    """A default instance (``cfg``'s upsampling, capacity and pyramid)
+    detecting ``SWEEP_SIZES`` in turn: after each, its cache key, the bytes
+    the build added to the pool, the program's static outputs and the
+    memory reserved; then what stays after ``close()``."""
+    scfg = vt.SiftConfig(use_input_upsampling=cfg.use_input_upsampling,
+                         max_nb_sift_per_buffer=cfg.max_nb_sift_per_buffer,
+                         input_image_max_size=3456 * 2304)
+    base = _reserved_after_release()
+    inst = vt.SiftInstance(scfg, device="cuda")
+    steps = []
+    for w, h in SWEEP_SIZES:
+        t0 = time.perf_counter()
+        inst.detect_features(bench_image(h, w, seed=5), 0)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        key, prog = next(reversed(inst._detect_cache.items()))
+        steps.append(dict(size=f"{w}x{h}", key=list(key),
+                          first_detect_s=first_s,
+                          added_to_pool=prog.pool_bytes,
+                          static_output_bytes=prog.output_bytes,
+                          reserved=_reserved_after_release() - base,
+                          programs=len(inst._detect_cache)))
+    inst.close()
+    del inst
+    closed = _reserved_after_release() - base
+    check(closed <= CLOSE_SLACK, f"sweep: {closed} bytes still reserved "
+          f"after close")
+    return dict(detect_cache_size=scfg.detect_cache_size,
+                retain_pyramid=scfg.retain_pyramid, steps=steps,
+                peak_reserved=max(st["reserved"] for st in steps),
+                reserved_after_close=closed)
 
 
 def run_compiled(img: np.ndarray, detect) -> dict:
@@ -1006,9 +1052,12 @@ def run_compiled(img: np.ndarray, detect) -> dict:
       1500x1000, which takes the (1536, 1024, True) program; its buffer
       byte-equal to the eager bucketed function on the padded frame, no
       feature outside 1500x1000, the bucket's octave plan;
-    - eviction: ``detect_cache_size=2`` over three resolutions, the
-      memory reserved after each; the evicted program's pool is returned,
-      and all of it when the instance closes;
+    - eviction: ``detect_cache_size=2`` over three resolutions, largest
+      first, the memory reserved after each: the instance's programs
+      share one pool, so the later builds reuse the evicted program's
+      memory and the instance never holds more than after its first
+      build; all of it is returned when the instance closes;
+    - the memory a default instance holds over ``SWEEP_SIZES``;
     - ``MatchProgram`` at 16384x16384 and at count_a 16284, count_b 16001
       byte-equal to the eager ``match_2nn_fused``; match ms both ways."""
     from vulkansift_tpu_torch.compiled import DetectProgram, MatchProgram
@@ -1121,17 +1170,18 @@ def run_compiled(img: np.ndarray, detect) -> dict:
     closed = _reserved_after_release() - base
     res["eviction"] = dict(steps=steps, reserved_after_close=closed)
     print("compiled_eviction " + json.dumps(res["eviction"]), flush=True)
-    pools = [st["pool_bytes"] for st in steps]
     check([tuple(k) for k in steps[-1]["keys"]]
           == [(*EVICT_SIZES[1], False), (*EVICT_SIZES[2], False)],
           f"eviction: keys {steps[-1]['keys']}")
-    # Evicting the first program returns its pool: the third program's
-    # build adds its own pool less the first's.
-    check(steps[2]["reserved"] - steps[1]["reserved"]
-          <= pools[2] - pools[0] + EVICT_SLACK,
-          f"eviction: reserved {steps[1]['reserved']} -> "
-          f"{steps[2]['reserved']} bytes (pools {pools})")
-    check(closed <= EVICT_SLACK, f"close: {closed} bytes still reserved")
+    # Absolute: after every build the instance holds no more than its
+    # first, largest program did.
+    reserved = [st["reserved"] for st in steps]
+    check(max(reserved) <= reserved[0] + EVICT_SLACK,
+          f"eviction: reserved {reserved} bytes after each build")
+    check(closed <= CLOSE_SLACK, f"close: {closed} bytes still reserved")
+
+    res["sweep"] = _memory_sweep(cfg)
+    print("compiled_sweep " + json.dumps(res["sweep"]), flush=True)
 
     a, b = _rand_desc(0, MATCH_N), _rand_desc(1, MATCH_N)
     mprog = MatchProgram(MATCH_N, MATCH_N, device="cuda")

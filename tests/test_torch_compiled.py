@@ -26,7 +26,8 @@ from conftest import make_blob_image
 import vulkansift_tpu as jvs
 from vulkansift_tpu.pipeline import octave_plan as jax_octave_plan
 import vulkansift_tpu_torch as vt
-from vulkansift_tpu_torch.compiled import DetectProgram, Snapshot
+from vulkansift_tpu_torch.compiled import (DetectProgram, GraphPool,
+                                           MatchProgram)
 from vulkansift_tpu_torch.errors import DeviceError
 from vulkansift_tpu_torch.ops import cuda_lib
 from vulkansift_tpu_torch.pipeline import make_detect_fn, octave_plan
@@ -198,34 +199,20 @@ def test_recording_defers_launch_counts():
     assert rec == {wrapper: 3} and inner == {wrapper: 1}
 
 
-def test_snapshot_copies_views_once():
-    """A snapshot of a graph's outputs: equal values in new memory that
-    later writes to the outputs do not reach, views of one buffer copied
-    once over the span they use, strides and 16-byte alignment kept."""
-    flat = torch.arange(1000, dtype=torch.float32)
-    stacks = [flat[16:64].view(3, 4, 4), flat[64:112].view(3, 4, 4)]
-    count = torch.tensor(7, dtype=torch.int32)
-    desc = torch.arange(256, dtype=torch.int64).to(torch.uint8).view(2, 128)
-    strided = torch.arange(12, dtype=torch.int64).view(3, 4).t()
-    outs = [*stacks, count, desc, strided, torch.zeros(0)]
-    snap = Snapshot(outs)
-    # flat's span [16, 112) floats, not its 1000.
-    assert snap.nbytes == 96 * 4 + 4 + 256 + 12 * 8
-    copies = snap.take()
-    for src, cp in zip(outs, copies):
-        assert cp.dtype == src.dtype and cp.shape == src.shape
-        assert cp.stride() == src.stride()
-        assert torch.equal(cp, src)
-        assert cp.data_ptr() % 16 == src.data_ptr() % 16
-    assert copies[0].untyped_storage().data_ptr() \
-        == copies[1].untyped_storage().data_ptr()
-    for t in (flat, count, desc, strided):
-        t.zero_()
-    assert copies[1][0, 0, 0] == 64 and int(copies[2]) == 7
-    assert int(copies[3][1, 127]) == 255 and int(copies[4][3, 2]) == 11
-    second = snap.take()
-    assert second[0].data_ptr() != copies[0].data_ptr()
-    assert torch.equal(second[2], torch.tensor(0, dtype=torch.int32))
+def test_graph_pool_new_handle_once_empty(monkeypatch):
+    """An instance's programs record into one pool; once its last program
+    has closed, the next one records into a new pool, never into one the
+    allocator may be freeing."""
+    handles = iter(range(100))
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: ("pool", next(handles)))
+    pool = GraphPool()
+    assert pool.acquire() == pool.acquire() == ("pool", 0)
+    pool.release()
+    assert pool.acquire() == ("pool", 0)
+    pool.release()
+    pool.release()
+    assert pool.acquire() == ("pool", 1)
 
 
 def test_program_needs_a_card():
@@ -235,3 +222,16 @@ def test_program_needs_a_card():
                         max_nb_sift_per_buffer=64)
     with pytest.raises(DeviceError):
         DetectProgram(cfg, 64, 64, device="cpu")
+
+
+def test_program_refuses_force_plain():
+    """A recorded program runs its kernels: inside cuda_lib.force_plain()
+    it is neither built nor called (a program built there would record the
+    plain path and replay it outside the block), and it says why."""
+    cfg = vt.SiftConfig(use_input_upsampling=False,
+                        max_nb_sift_per_buffer=64)
+    with cuda_lib.force_plain():
+        with pytest.raises(DeviceError, match="force_plain"):
+            DetectProgram(cfg, 64, 64, device="cpu")
+        with pytest.raises(DeviceError, match="force_plain"):
+            MatchProgram(64, 64, device="cpu")

@@ -13,18 +13,24 @@ records one call of the same function as a CUDA graph and replays it:
 Building a program runs its function once on a side stream (the warm-up:
 the kernels' nvcc build and one-time attributes, the allocator's and
 PyTorch's first use), then records one call with ``torch.cuda.graph(...,
-capture_error_mode="thread_local")`` into the graph's private memory
-pool; other threads may go on launching meanwhile. A call copies its
-inputs into the static buffers, replays the graph and copies the outputs
-out, all in stream order on the device's current stream and with no host
-synchronisation, so that a result survives later replays. Like a compiled
-program, the graph is fixed to its shapes and holds its pool until
-:meth:`close`.
+capture_error_mode="thread_local")``; other threads may go on launching
+meanwhile. A call copies its inputs into the static buffers, replays the
+graph and clones the outputs, all in stream order on the device's current
+stream and with no host synchronisation, so that a result survives later
+replays. Like a compiled program, the graph is fixed to its shapes.
+
+The graph's memory comes from a :class:`GraphPool`. A program built alone
+has a pool of its own; an instance's programs share one, so that they hold
+one working set between them (the largest program's) and each only its
+static inputs and outputs. That is safe because the programs of a pool
+replay one at a time: each call waits for the pool's last call to have
+copied its outputs, and nothing reads a graph's outputs after that.
 
 Launch counts stay honest: the warm-up's launches count as they run, the
 capture's are recorded (:func:`.ops.cuda_lib.recording`) and added at
 every replay. A failure to build or replay raises; a program never runs
-its function eagerly in place of the graph.
+its function eagerly in place of the graph, and raises inside
+:func:`.ops.cuda_lib.force_plain` rather than run its kernels there.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -57,61 +63,45 @@ _build_lock = threading.Lock()
 _side_streams: Dict[torch.device, torch.cuda.Stream] = {}
 
 
-class Snapshot:
-    """Copies a fixed list of tensors (a graph's static outputs) into new
-    memory. Each storage they view is copied once, over the span of bytes
-    they use (from a 16-byte boundary, so alignments hold), and each copy
-    keeps its tensor's dtype, sizes, strides and offset in that span: views
-    of one buffer stay views of one copy."""
+def _check_kernels() -> None:
+    if cuda_lib.plain_forced():
+        raise DeviceError("a recorded program runs its kernels: it is not "
+                          "built or called inside cuda_lib.force_plain()")
 
-    def __init__(self, tensors: Sequence[torch.Tensor]):
-        spans: Dict[int, list] = {}
-        for t in tensors:
-            es = t.element_size()
-            lo = t.storage_offset() * es
-            hi = lo + es * (1 + sum((n - 1) * s for n, s in
-                                    zip(t.shape, t.stride()))) \
-                if t.numel() else lo
-            st = t.untyped_storage()
-            span = spans.setdefault(st.data_ptr(), [st, lo, hi, t.device])
-            span[1], span[2] = min(span[1], lo), max(span[2], hi)
-        index = {}
-        self._sources: List[torch.Tensor] = []
-        for ptr, (st, lo, hi, dev) in spans.items():
-            lo -= lo % 16
-            index[ptr] = (len(self._sources), lo)
-            self._sources.append(torch.empty(0, dtype=torch.uint8,
-                                             device=dev).set_(
-                st, lo, (hi - lo,), (1,)))
-        self._layout = []
-        for t in tensors:
-            i, lo = index[t.untyped_storage().data_ptr()]
-            off = (t.storage_offset() * t.element_size() - lo) \
-                // t.element_size()
-            self._layout.append((i, t.dtype, off, tuple(t.shape),
-                                 tuple(t.stride())))
 
-    @property
-    def nbytes(self) -> int:
-        """Bytes copied by one :meth:`take`."""
-        return sum(s.numel() for s in self._sources)
+class GraphPool:
+    """The memory pool that one or more programs record into, and the event
+    of its last call. A new handle is taken when no program holds the pool,
+    so that a pool whose graphs are all gone is never recorded into again
+    (the allocator frees it at its next ``empty_cache``)."""
 
-    def take(self) -> List[torch.Tensor]:
-        copies = [s.clone() for s in self._sources]
-        return [torch.empty(0, dtype=dtype, device=copies[i].device).set_(
-                    copies[i].untyped_storage(), off, shape, stride)
-                for i, dtype, off, shape, stride in self._layout]
+    def __init__(self):
+        self._handle = None
+        self._programs = 0
+        self.done: Optional[torch.cuda.Event] = None
+
+    def acquire(self):
+        if self._programs == 0:
+            self._handle = torch.cuda.graph_pool_handle()
+        self._programs += 1
+        return self._handle
+
+    def release(self) -> None:
+        self._programs -= 1
 
 
 class _Program:
     """A function of static input buffers recorded as a CUDA graph."""
 
     def _record(self, device: torch.device,
-                run: Callable[[], List[torch.Tensor]]) -> None:
+                run: Callable[[], List[torch.Tensor]],
+                pool: Optional[GraphPool]) -> None:
+        _check_kernels()
         if device.type != "cuda":
             raise DeviceError(f"a recorded program needs a CUDA device, "
                               f"not {device}")
         self.device = device
+        self._pool = pool if pool is not None else GraphPool()
         with _build_lock, torch.cuda.device(device):
             side = _side_streams.get(device)
             if side is None:
@@ -127,24 +117,30 @@ class _Program:
             torch.cuda.empty_cache()
             before = torch.cuda.memory_reserved(device)
             graph = torch.cuda.CUDAGraph()
-            with cuda_lib.recording() as launches:
-                with torch.cuda.graph(graph, stream=side,
-                                      capture_error_mode="thread_local"):
-                    outs = run()
+            handle = self._pool.acquire()
+            try:
+                with cuda_lib.recording() as launches:
+                    with torch.cuda.graph(graph, pool=handle, stream=side,
+                                          capture_error_mode="thread_local"):
+                        outs = run()
+            except BaseException:
+                self._pool.release()
+                raise
             t2 = time.perf_counter()
+            # What the capture added to the pool (with a shared pool, less
+            # than the program's working set where it fits in free memory).
             self.pool_bytes = torch.cuda.memory_reserved(device) - before
         self.warmup_seconds = t1 - t0
         # torch.cuda.graph instantiates the graph as the capture ends.
         self.capture_seconds = t2 - t1
         self._graph: Optional[torch.cuda.CUDAGraph] = graph
         self._launches = launches
-        self._outputs = Snapshot(outs)
-        self._done: Optional[torch.cuda.Event] = None
+        self._outputs: Optional[List[torch.Tensor]] = outs
 
     @property
     def output_bytes(self) -> int:
         """Bytes a call copies out of the graph's outputs."""
-        return self._outputs.nbytes
+        return sum(t.nbytes for t in self._outputs)
 
     @property
     def launches(self) -> Dict[str, int]:
@@ -154,32 +150,36 @@ class _Program:
     def _begin(self) -> torch.cuda.Stream:
         if self._graph is None:
             raise DeviceError("the program is closed")
+        _check_kernels()
         stream = torch.cuda.current_stream(self.device)
-        if self._done is not None:
-            # The static buffers are shared by every call: a call on
-            # another stream waits for the last one's copies.
-            stream.wait_event(self._done)
+        if self._pool.done is not None:
+            # The static buffers, and the pool's memory, are shared by
+            # every call: a call on another stream waits for the last
+            # one's copies.
+            stream.wait_event(self._pool.done)
         return stream
 
     def _replay(self, stream: torch.cuda.Stream) -> List[torch.Tensor]:
         self._graph.replay()
         for wrapper, n in self._launches.items():
             wrapper.launches += n
-        outs = self._outputs.take()
-        self._done = torch.cuda.Event()
-        self._done.record(stream)
+        outs = [t.clone() for t in self._outputs]
+        self._pool.done = torch.cuda.Event()
+        self._pool.done.record(stream)
         return outs
 
     def close(self) -> None:
-        """Wait for the last replay, then free the graph and its pool (the
-        static inputs go with the program)."""
+        """Wait for the pool's last call, then free the graph and return its
+        memory to the pool (the static inputs go with the program); the pool
+        itself is freed when its last program closes."""
         if self._graph is None:
             return
-        if self._done is not None:
-            self._done.synchronize()
+        if self._pool.done is not None:
+            self._pool.done.synchronize()
         self._outputs = None
         self._graph.reset()
         self._graph = None
+        self._pool.release()
 
 
 class DetectProgram(_Program):
@@ -192,7 +192,8 @@ class DetectProgram(_Program):
 
     def __init__(self, config: SiftConfig, width: int, height: int, *,
                  bucket: int = 1, device: DeviceLike = "cuda",
-                 return_pyramid: bool = False):
+                 return_pyramid: bool = False,
+                 pool: Optional[GraphPool] = None):
         dev = resolve_device(device, config.device_index)
         self.width, self.height = width, height
         self.bucketed = bucket > 1
@@ -215,7 +216,7 @@ class DetectProgram(_Program):
             return ([getattr(out.features, f) for f in _FEATURE_FIELDS]
                     + [out.lost, out.per_octave_counts, *pyr[0], *pyr[1]])
 
-        self._record(dev, run)
+        self._record(dev, run, pool)
 
     def __call__(self, image, valid_w=None, valid_h=None):
         img = image if isinstance(image, torch.Tensor) \
@@ -253,7 +254,8 @@ class MatchProgram(_Program):
     and never reach the host."""
 
     def __init__(self, capacity_a: int, capacity_b: int, *,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 pool: Optional[GraphPool] = None):
         dev = resolve_device(device)
         self._desc = tuple(torch.zeros((n, DESC_SIZE), dtype=torch.uint8,
                                        device=dev)
@@ -266,7 +268,7 @@ class MatchProgram(_Program):
                                 self._desc[1], self._count[1])
             return [getattr(m, f) for f in _MATCH_FIELDS]
 
-        self._record(dev, run)
+        self._record(dev, run, pool)
 
     def __call__(self, desc_a: torch.Tensor, count_a: torch.Tensor,
                  desc_b: torch.Tensor, count_b: torch.Tensor) -> Matches2NN:

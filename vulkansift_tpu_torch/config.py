@@ -19,12 +19,14 @@ Port notes:
 * ``resolution_bucket`` and ``detect_cache_size`` act as in the JAX
   package. A card instance records each detect resolution as a CUDA graph
   (``compiled.DetectProgram``), the counterpart of an XLA executable: fixed
-  to its shapes, holding its own memory pool. ``detect_cache_size`` bounds
-  how many the instance keeps (LRU; a CPU instance keeps its eager
-  functions under the same keys), and ``resolution_bucket`` bounds how many
-  distinct ones it needs: 0 (AUTO) gives the first two resolutions exact
-  programs and pads every later new one to a multiple of 64, a value above
-  1 pads every resolution to a multiple of it, and 1 never pads.
+  to its shapes. The instance's programs share one memory pool, in which
+  each holds its static outputs (the pyramid under ``retain_pyramid``).
+  ``detect_cache_size`` bounds how many the instance keeps (LRU; a CPU
+  instance keeps its eager functions under the same keys), and
+  ``resolution_bucket`` bounds how many distinct ones it needs: 0 (AUTO)
+  gives the first two resolutions exact programs and pads every later new
+  one to a multiple of 64, a value above 1 pads every resolution to a
+  multiple of it, and 1 never pads.
 """
 
 from __future__ import annotations

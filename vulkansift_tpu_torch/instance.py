@@ -17,7 +17,8 @@ As the JAX instance compiles one program per detect resolution, a card
 instance records one :class:`~.compiled.DetectProgram` (a CUDA graph) per
 key ``(width, height, bucketed)`` and keeps them in an LRU of
 ``config.detect_cache_size``; ``match_features`` replays a
-:class:`~.compiled.MatchProgram` per pair of buffer capacities.
+:class:`~.compiled.MatchProgram` per pair of buffer capacities. The
+programs share one memory pool (:class:`~.compiled.GraphPool`).
 ``config.resolution_bucket`` bounds the keys as in the JAX package: 0
 (AUTO, the default) gives the first two distinct resolutions exact
 programs and edge-pads every later new one to a multiple of 64; a value
@@ -39,7 +40,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .compiled import DetectProgram, MatchProgram
+from .compiled import DetectProgram, GraphPool, MatchProgram
 from .config import SiftConfig, get_default_config
 from .errors import DeviceError, InvalidInputError, Result
 from .ops.match import match_2nn_fused
@@ -143,6 +144,9 @@ class SiftInstance:
         # Resolutions given exact programs in AUTO bucketing mode.
         self._exact_resolutions: set = set()
         self._match_programs: Dict[Tuple[int, int], MatchProgram] = {}
+        # The programs' one memory pool: they hold one working set between
+        # them, and an evicted program's memory serves the next one.
+        self._graph_pool = GraphPool()
         self._buffers = [
             _BufferState(features=Features.empty(
                 config.max_nb_sift_per_buffer, self.device))
@@ -227,8 +231,8 @@ class SiftInstance:
             if key in self._detect_cache:
                 self._detect_cache.move_to_end(key)
             else:
-                # Evict before building, so that the evicted program's pool
-                # is free for the new one.
+                # Evict before building, so that the evicted program's
+                # memory is free for the new one.
                 while (len(self._detect_cache)
                        >= self.config.detect_cache_size):
                     _release(self._detect_cache.popitem(last=False)[1])
@@ -263,9 +267,10 @@ class SiftInstance:
                   device=self.device, bucket=bucket)
         if self.device.type != "cuda":
             return make_detect_fn(self.config, width, height, **kw)
-        prog = DetectProgram(self.config, width, height, **kw)
+        prog = DetectProgram(self.config, width, height,
+                             pool=self._graph_pool, **kw)
         logger.debug("detect program %dx%d (bucket %d): warm-up %.3f s, "
-                     "capture %.3f s, pool %d bytes", width, height, bucket,
+                     "capture %.3f s, %d bytes added to the pool", width, height, bucket,
                      prog.warmup_seconds, prog.capture_seconds,
                      prog.pool_bytes)
         return prog
@@ -283,7 +288,7 @@ class SiftInstance:
                 key = (fa.capacity, fb.capacity)
                 if key not in self._match_programs:
                     self._match_programs[key] = MatchProgram(
-                        *key, device=self.device)
+                        *key, device=self.device, pool=self._graph_pool)
                 self._matches = self._match_programs[key](
                     fa.descriptor, fa.count, fb.descriptor, fb.count)
             else:
@@ -444,7 +449,7 @@ class SiftInstance:
 
 
 def _release(prog) -> None:
-    """Free a cached program's graph and pool (an eager function holds
-    none)."""
+    """Free a cached program's graph and return its memory to the pool (an
+    eager function holds none)."""
     if isinstance(prog, (DetectProgram, MatchProgram)):
         prog.close()

@@ -176,7 +176,12 @@ def use_kernel(t: torch.Tensor) -> bool:
         return False
     if t.device.type != "cuda":
         raise DeviceError(f"no kernel for device {t.device}")
-    return not getattr(_local, "force_plain", False)
+    return not plain_forced()
+
+
+def plain_forced() -> bool:
+    """True inside :func:`force_plain` on the calling thread."""
+    return getattr(_local, "force_plain", False)
 
 
 @contextlib.contextmanager
