@@ -67,14 +67,24 @@
      ms and launches a detect, then its gates against ``make_detect_fn``
      (lost 0 on both, the same count, sorted (x, y, sigma, orientation)
      within 1e-5, descriptors equal after a lexsort), at 640x480 if its
-     per-octave capacities clamp at 1536x1024;
+     per-octave capacities clamp at 1536x1024; then its recorded stages
+     (``compiled.StageProgram``) against the same stages run eagerly on
+     the card (``compiled_staged`` line: byte for byte on the headline
+     frame and on 640x480, wall ms both ways, the S2 and S3 programs over
+     five shifted frames, the memory reserved, at most 24 MiB after
+     ``close()``);
    - ``start_trace`` / ``stop_trace`` around two detects and a match: the
      Chrome trace must name the five kernels;
    - in a process group of world size 1 (NCCL, ``file://`` store): dp
      detect of two frames bit-equal to two single detects, the ring
      matcher at 16384x16384 and the one-card 4- and 3-shard folds at
      count_b 16001 (ties on the kernel's and the shards' edges) bit-equal
-     to ``match_2nn_fused``, and one ``measure_dp_scaling`` point;
+     to ``match_2nn_fused`` and the folds to the eager ``ring_step``
+     fold, one ``measure_dp_scaling`` point; then the ``compiled_dp``
+     line (the dp detect's ``DetectProgram`` replays byte-equal to the
+     eager ``make_detect_batched``) and the ``compiled_ring`` line (the
+     ring's ``RingStepProgram`` replays byte-equal to the eager fold;
+     ms both ways, capture seconds, pool bytes);
    - SfM on a synthetic scene (8 cameras, 4096 points, 0.3 px noise):
      ``reconstruct_sequence`` on the card (final cost < 1 px^2, ATE <
      0.05, relative rotations < 1 degree) and against its CPU run (poses
@@ -143,6 +153,7 @@ import numpy as np
 import torch
 
 import vulkansift_tpu_torch as vt
+from vulkansift_tpu_torch.compiled import EagerStage
 from vulkansift_tpu_torch.config import NB_ORI_HIST_BINS
 from vulkansift_tpu_torch.ops import backhalf, blur, cuda_lib, frontend
 from vulkansift_tpu_torch.ops import descriptor as desc_mod
@@ -1584,6 +1595,95 @@ def run_staged(img: np.ndarray) -> dict:
     return res
 
 
+class EagerSiftDetector(vt.SiftDetector):
+    """The staged detector with its stage functions run eagerly on the card:
+    the reference its recorded stages are held to."""
+
+    def _stage(self, fn, inputs=()):
+        return EagerStage(fn, inputs=inputs)
+
+
+def _staged_tensors(out) -> list:
+    feats, gaussians, dogs, _ = out
+    return ([getattr(feats, f.name) for f in dataclasses.fields(vt.Features)]
+            + [*gaussians, *dogs])
+
+
+def wall_ms(fn, reps: int = TIMED_FRAMES) -> float:
+    """Median host ms of ``fn`` from a synchronised start to a
+    synchronised end, after one warm-up."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+# Frames for the staged detector's program count: the headline frame moved
+# by these (dx, dy).
+STAGED_SHIFTS = ((0, 0), (7, 5), (16, 9), (31, 23), (64, 40))
+
+
+def run_compiled_staged(img: np.ndarray) -> dict:
+    """The staged detector's recorded stages against the same stage
+    functions run eagerly (:class:`EagerSiftDetector`): on the headline
+    frame and on 640x480, a frame, its translate and the frame again, the
+    Features, the retained pyramid, the kept counts and ``lost`` byte for
+    byte; wall ms both ways; each stage's capture seconds, pool bytes and
+    launches. Then the S2 and S3 programs one detector records over
+    ``STAGED_SHIFTS`` at 1536x1024, and the memory reserved before, after
+    and after ``close()`` (at most ``CLOSE_SLACK``)."""
+    cfg = vt.SiftConfig(use_input_upsampling=True,
+                        max_nb_sift_per_buffer=CAPACITY)
+    res = {}
+    for frame in (img, bench_image(480, 640, seed=3)):
+        h, w = frame.shape
+        what = f"{w}x{h}"
+        det = vt.SiftDetector(cfg, device="cuda")
+        eager = EagerSiftDetector(cfg, device="cuda")
+        moved = shifted(frame, *SHIFT)
+        for f in (frame, moved, frame):
+            got, ref = det.detect(f, w, h), eager.detect(f, w, h)
+            check(_same_results(_staged_tensors(got), _staged_tensors(ref))
+                  and got[3] == ref[3] and det.lost == eager.lost,
+                  f"compiled staged {what}: the replays differ from the "
+                  f"eager stages")
+        stages = det._programs[(w, h)]
+        res[what] = dict(
+            count=int(got[0].count), per_octave=got[3], lost=det.lost,
+            graph_wall_ms=wall_ms(lambda: det.detect(frame, w, h)),
+            eager_wall_ms=wall_ms(lambda: eager.detect(frame, w, h)),
+            s1=program_stats(stages.s1),
+            s2={str(k): program_stats(p) for k, p in stages.s2.items()},
+            s3={str(k): program_stats(p) for k, p in stages.s3.items()})
+        det.close()
+        eager.close()
+        del det, eager, got, ref
+
+    base = _reserved_after_release()
+    det = vt.SiftDetector(cfg, device="cuda")
+    for dx, dy in STAGED_SHIFTS:
+        det.detect(shifted(img, dx, dy), W, H)
+    stages = det._programs[(W, H)]
+    held = _reserved_after_release() - base
+    res["shifted"] = dict(frames=len(STAGED_SHIFTS), s2_programs=len(
+        stages.s2), s3_programs=len(stages.s3),
+        profiles=[list(k) for k in stages.s2],
+        reserved=held)
+    det.close()
+    del det, stages
+    closed = _reserved_after_release() - base
+    res["shifted"]["reserved_after_close"] = closed
+    check(closed <= CLOSE_SLACK,
+          f"compiled staged: {closed} bytes still reserved after close")
+    print("compiled_staged " + json.dumps(res), flush=True)
+    return res
+
+
 TRACE_SYMBOLS = {k: f"{k}_kernel" for k in WRAPPERS}
 FOLD_COUNT_B = 16001          # check_match's ragged B count
 
@@ -1671,9 +1771,12 @@ def multi_device_checks(mesh, dev: torch.device) -> dict:
     img = bench_image(H, W, seed=0)
     frames = np.stack([shifted(img, i, i) for i in range(2 * n)])
     dp = parallel.make_dp_detect_fn(cfg, W, H, mesh, device=dev)
+    local = parallel.shard_batch(frames, mesh, device=dev)
+    dp(local)                      # records the program (and warms up)
     zero_launches()
-    out = dp(parallel.shard_batch(frames, mesh, device=dev))
+    out = dp(local)
     res["dp_launches"] = read_launches()
+    dp.close()
     single = make_detect_fn(cfg, W, H, device=dev)
     for i in range(2):
         ref = single(frames[2 * rank + i])
@@ -1693,6 +1796,7 @@ def multi_device_checks(mesh, dev: torch.device) -> dict:
     m_n = MATCH_N
     a, b = _rand_desc(0, m_n), _rand_desc(1, m_n)     # on this rank's card
     ring = parallel.make_ring_match_fn(mesh, device=dev)
+    ring(a, m_n, b, m_n)           # records the step (and warms up)
     na_l = -(-m_n // n)
     rows = slice(rank * na_l, min((rank + 1) * na_l, m_n))
     for what, bb, cb in (("full", b, m_n),
@@ -1714,6 +1818,7 @@ def multi_device_checks(mesh, dev: torch.device) -> dict:
     res["ring_ms"] = rank_ms(lambda: ring(a, m_n, b, m_n))
     res["single_match_ms"] = rank_ms(
         lambda: match_mod.match_2nn_fused(a, m_n, b, m_n))
+    ring.close()
     print(f"rank {rank}/{n}: ring {m_n}x{m_n} (full and count_b "
           f"{FOLD_COUNT_B}) bit-equal to match_2nn_fused; "
           f"{res['ring_ms']:.4f} ms vs {res['single_match_ms']:.4f} ms",
@@ -1751,6 +1856,81 @@ def multi_device_checks(mesh, dev: torch.device) -> dict:
     return res
 
 
+def program_stats(prog) -> dict:
+    """A recorded program's build and replay figures."""
+    return dict(warmup_s=prog.warmup_seconds,
+                capture_instantiate_s=prog.capture_seconds,
+                pool_bytes=prog.pool_bytes,
+                launches_per_replay=prog.launches)
+
+
+def eager_fold(a_l: torch.Tensor, visit, count_b: int):
+    """The fold as it ran before its step was recorded: ``ring_step`` with
+    Python ints, eagerly, one shard after another."""
+    from vulkansift_tpu_torch.parallel import ring_match as rm
+    top2 = rm.empty_top2(a_l.shape[0], a_l.device)
+    for shard, offset in visit:
+        top2 = rm.ring_step(top2, a_l, shard, offset, count_b)
+    return top2
+
+
+def run_compiled_parallel(mesh) -> dict:
+    """World size 1: the dp detect's replays of its ``DetectProgram``
+    against the eager ``make_detect_batched`` over 2 frames, byte for byte,
+    and the ring's replays of its ``RingStepProgram`` against the eager
+    fold at 16k and at count_b 16001 with edge ties, bit for bit; ms both
+    ways, capture seconds, pool bytes."""
+    from vulkansift_tpu_torch import parallel
+    from vulkansift_tpu_torch.parallel import ring_match as rm
+    from vulkansift_tpu_torch.pipeline import make_detect_batched
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = vt.SiftConfig(use_input_upsampling=True,
+                        max_nb_sift_per_buffer=CAPACITY)
+    img = bench_image(H, W, seed=0)
+    local = parallel.shard_batch(
+        np.stack([img, shifted(img, *SHIFT)]), mesh, device=dev)
+    dp = parallel.make_dp_detect_fn(cfg, W, H, mesh, device=dev)
+    eager = make_detect_batched(cfg, W, H, device=dev)
+    got = dp(local)
+    prog = dp.program
+    check(_same_results(_detect_tensors(got), _detect_tensors(eager(local))),
+          "compiled dp: the replays differ from make_detect_batched")
+    frames = len(local)
+    res = dict(dp=dict(
+        frames=frames, counts=[int(c) for c in got.features.count],
+        graph_ms_per_frame=median_ms(lambda: dp(local), TIMED_FRAMES) / frames,
+        eager_ms_per_frame=median_ms(lambda: eager(local), TIMED_FRAMES)
+        / frames, output_bytes_per_frame=prog.output_bytes,
+        **program_stats(prog)))
+    dp.close()
+    del got, eager
+
+    a, b = _rand_desc(0, MATCH_N), _rand_desc(1, MATCH_N)
+    ring = parallel.make_ring_match_fn(mesh, device=dev)
+    for what, bb, cb in (("16k", b, MATCH_N),
+                         ("ragged", shard_edge_ties(a, b, FOLD_COUNT_B, 1),
+                          FOLD_COUNT_B)):
+        m = ring(a, MATCH_N, bb, cb)
+        ref = rm.finish(eager_fold(a, [(bb, 0)], cb), 0, MATCH_N)
+        check(_same_results([getattr(m, f.name) for f in
+                             dataclasses.fields(vt.Matches2NN)],
+                            [getattr(ref, f.name) for f in
+                             dataclasses.fields(vt.Matches2NN)]),
+              f"compiled ring {what}: differs from the eager fold")
+    step = ring.steps[(MATCH_N, MATCH_N)]
+    res["ring"] = dict(
+        world_size=mesh.size(), cases=["16k", f"count_b {FOLD_COUNT_B}"],
+        graph_ms=median_ms(lambda: ring(a, MATCH_N, b, MATCH_N),
+                           TIMED_FRAMES),
+        eager_ms=median_ms(lambda: rm.finish(
+            eager_fold(a, [(b, 0)], MATCH_N), 0, MATCH_N), TIMED_FRAMES),
+        fused_ms=median_ms(lambda: match_mod.match_2nn_fused(
+            a, MATCH_N, b, MATCH_N), TIMED_FRAMES),
+        **program_stats(step))
+    ring.close()
+    return res
+
+
 def run_multi_device(mesh) -> dict:
     """World size 1 (one card): :func:`multi_device_checks`, then the
     one-card n-shard folds (n = 4 and 3, count_b 16001, ties on the
@@ -1762,30 +1942,51 @@ def run_multi_device(mesh) -> dict:
     n, cb = MATCH_N, FOLD_COUNT_B
     a, b = _rand_desc(0, n), _rand_desc(1, n)
     res["fold_launches"] = {}
+    folds = {}
     for shards in (4, 3):
         b2 = shard_edge_ties(a, b, cb, shards)
         ref = match_mod.match_2nn_fused(a, n, b2, cb)
         ap, bp = rm.pad_rows(a, shards), rm.pad_rows(b2, shards)
         na_l, nb_l = ap.shape[0] // shards, bp.shape[0] // shards
+        step = rm.make_step(na_l, nb_l, a.device)
+
+        def a_rows(r):
+            return ap[r * na_l:(r + 1) * na_l]
+
+        def visit(r):
+            return [(bp[s * nb_l:(s + 1) * nb_l], s * nb_l)
+                    for s in ((r - i) % shards for i in range(shards))]
+
+        rm.fold_shards(a_rows(0), visit(0), cb, step=step)   # warm-up
         zero_launches()
-        parts = []
-        for r in range(shards):
-            visit = [(bp[s * nb_l:(s + 1) * nb_l], s * nb_l)
-                     for s in ((r - i) % shards for i in range(shards))]
-            parts.append(rm.finish(rm.fold_shards(
-                ap[r * na_l:(r + 1) * na_l], visit, cb), r * na_l, n))
+        folded = [rm.fold_shards(a_rows(r), visit(r), cb, step=step)
+                  for r in range(shards)]
         launches = read_launches()
         check(launches["match_2nn"] == shards * shards,
               f"{shards}-shard fold: {shards} launches a rank expected")
         res["fold_launches"][shards] = launches
+        parts = [rm.finish(t, r * na_l, n) for r, t in enumerate(folded)]
         got = vt.Matches2NN(**{f: torch.cat([getattr(p, f) for p in parts])
                                for f in ("idx_a", "idx_b1", "idx_b2",
                                          "dist_a_b1", "dist_a_b2")},
                             count=ref.count)
         check(_equal_matches(got, ref, n),
               f"{shards}-shard fold differs from match_2nn_fused")
+        check(all(_same_results(list(t), list(eager_fold(a_rows(r),
+                                                         visit(r), cb)))
+                  for r, t in enumerate(folded)),
+              f"{shards}-shard fold: the recorded step differs from the "
+              f"eager fold")
+        folds[shards] = dict(
+            graph_ms=median_ms(lambda: rm.fold_shards(
+                a_rows(0), visit(0), cb, step=step), TIMED_FRAMES),
+            eager_ms=median_ms(lambda: eager_fold(a_rows(0), visit(0), cb),
+                               TIMED_FRAMES),
+            **program_stats(step))
+        step.close()
         print(f"{shards}-shard fold at count_b {cb} bit-equal to "
-              f"match_2nn_fused", flush=True)
+              f"match_2nn_fused and to the eager fold", flush=True)
+    res["compiled_folds"] = folds
     print(f"scaling point: 1 device, {W}x{H}, 2 frames a device: "
           f"{res['scaling']['points'][0]['fps']:.3f} fps; across cards: "
           f"unmeasured here (chip_smoke.py --cards N)", flush=True)
@@ -1978,15 +2179,22 @@ def run_later_paths(img: np.ndarray) -> dict:
     group of world size 1, NCCL over a file:// store), then SfM."""
     import torch.distributed as dist
     from vulkansift_tpu_torch import parallel
-    res = dict(staged=run_staged(img), trace=run_trace(img))
+    res = dict(staged=run_staged(img), compiled_staged=run_compiled_staged(
+        img), trace=run_trace(img))
     cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as d:
         parallel.init_distributed(f"file://{d}/store", 1, 0, device="cuda")
         try:
             mesh = parallel.make_mesh(1)
             res["multi_device"] = run_multi_device(mesh)
+            compiled = run_compiled_parallel(mesh)
         finally:
             dist.destroy_process_group()
+    print("compiled_dp " + json.dumps(compiled["dp"]), flush=True)
+    compiled["folds"] = res["multi_device"]["compiled_folds"]
+    print("compiled_ring " + json.dumps(
+        {k: v for k, v in compiled.items() if k != "dp"}), flush=True)
+    res["compiled_parallel"] = compiled
     res["sfm"] = run_sfm()
     return res
 

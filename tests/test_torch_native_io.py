@@ -3,7 +3,8 @@ JAX package's ``tests/test_native_io.py`` cases against the port's module,
 files written by one package read by the other, and the port's own build
 (into the git-ignored ``build/``, raising when ``g++`` fails, the
 pure-Python paths without ``g++``). Skips where ``g++`` is missing, as the
-JAX tests do."""
+JAX tests do. The JAX module loads the port's library here, never
+``native/libvksift_io.so`` (see the ``nio`` fixture)."""
 
 import shutil
 
@@ -18,10 +19,18 @@ from vulkansift_tpu_torch.utils import native_io as tnio
 
 @pytest.fixture(scope="module")
 def nio():
+    """The port's module, with the JAX module pointed at the port's library
+    for the module's tests: the JAX package's own tests rebuild
+    ``native/libvksift_io.so`` in place (``native/build.sh``) on another
+    worker, and loading that file while ``g++`` writes it fails; the port
+    builds into a temporary file and renames it."""
     if shutil.which("g++") is None and not tnio.lib_path().exists():
         pytest.skip("no g++ toolchain")
     assert tnio.available()
-    return tnio
+    saved = jnio._LIB_PATHS, jnio._lib
+    jnio._LIB_PATHS, jnio._lib = (str(tnio.lib_path()),), None
+    yield tnio
+    jnio._LIB_PATHS, jnio._lib = saved
 
 
 def _write_pgm(path, img):

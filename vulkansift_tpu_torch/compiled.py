@@ -8,7 +8,15 @@ records one call of the same function as a CUDA graph and replays it:
   resolution, exact or a bucket's, with a static (H, W) u8 input and, when
   bucketed, the valid width and height as device scalars;
 * :class:`MatchProgram` -- :func:`.ops.match.match_2nn_fused` for two
-  descriptor capacities, with static descriptor blocks and counts.
+  descriptor capacities, with static descriptor blocks and counts;
+* :class:`RingStepProgram` -- one step of the ring matcher's fold
+  (:func:`.parallel.ring_match.ring_step_into`) for one pair of shard
+  sizes, the shard's row offset and live count as device scalars, so that
+  one graph serves every step of every fold;
+* :class:`StageProgram` -- one stage of the staged
+  :class:`~.detector.SiftDetector`, which reads its input in place (the
+  stage's static image, or an earlier stage's static outputs) and whose
+  outputs stay in the graph's buffers for the next stage.
 
 Building a program runs its function once on a side stream (the warm-up:
 the kernels' nvcc build and one-time attributes, the allocator's and
@@ -30,7 +38,9 @@ Launch counts stay honest: the warm-up's launches count as they run, the
 capture's are recorded (:func:`.ops.cuda_lib.recording`) and added at
 every replay. A failure to build or replay raises; a program never runs
 its function eagerly in place of the graph, and raises inside
-:func:`.ops.cuda_lib.force_plain` rather than run its kernels there.
+:func:`.ops.cuda_lib.force_plain` rather than run its kernels there. A
+program needs a card: on the CPU its callers run the same function
+eagerly under the same keys (:class:`EagerStage` for a stage).
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -88,6 +98,11 @@ class GraphPool:
 
     def release(self) -> None:
         self._programs -= 1
+
+    def record_done(self, stream: torch.cuda.Stream) -> None:
+        """Mark the end of a call on ``stream``: its outputs are copied."""
+        self.done = torch.cuda.Event()
+        self.done.record(stream)
 
 
 class _Program:
@@ -159,13 +174,24 @@ class _Program:
             stream.wait_event(self._pool.done)
         return stream
 
-    def _replay(self, stream: torch.cuda.Stream) -> List[torch.Tensor]:
+    def _launch(self) -> None:
         self._graph.replay()
         for wrapper, n in self._launches.items():
             wrapper.launches += n
-        outs = [t.clone() for t in self._outputs]
-        self._pool.done = torch.cuda.Event()
-        self._pool.done.record(stream)
+
+    def _replay(self, stream: torch.cuda.Stream,
+                into: Optional[Sequence[torch.Tensor]] = None
+                ) -> List[torch.Tensor]:
+        """Replay, then copy the outputs into new tensors, or into
+        ``into`` (tensors of the outputs' shapes) when given."""
+        self._launch()
+        if into is None:
+            outs = [t.clone() for t in self._outputs]
+        else:
+            outs = list(into)
+            for dst, src in zip(outs, self._outputs):
+                dst.copy_(src, non_blocking=True)
+        self._pool.record_done(stream)
         return outs
 
     def close(self) -> None:
@@ -188,7 +214,9 @@ class DetectProgram(_Program):
     eager function returns (a :class:`.pipeline.DetectOutput`, with the
     gaussian and DoG stacks under ``return_pyramid``), in new tensors.
     ``bucket > 1`` takes the bucket's edge-padded (H, W) frame and the
-    valid size, which the graph reads from two device scalars."""
+    valid size, which the graph reads from two device scalars. ``out``, a
+    :class:`.pipeline.DetectOutput` of the result's shapes (views into a
+    batch, say), receives the result in place of new tensors."""
 
     def __init__(self, config: SiftConfig, width: int, height: int, *,
                  bucket: int = 1, device: DeviceLike = "cuda",
@@ -218,7 +246,8 @@ class DetectProgram(_Program):
 
         self._record(dev, run, pool)
 
-    def __call__(self, image, valid_w=None, valid_h=None):
+    def __call__(self, image, valid_w=None, valid_h=None, *,
+                 out: Optional[DetectOutput] = None):
         img = image if isinstance(image, torch.Tensor) \
             else torch.from_numpy(np.ascontiguousarray(image))
         if img.shape != (self.height, self.width) or img.dtype != torch.uint8:
@@ -226,6 +255,8 @@ class DetectProgram(_Program):
                              f"uint8 image")
         if self.bucketed and (valid_w is None or valid_h is None):
             raise ValueError("a bucketed program needs valid_w and valid_h")
+        if out is not None and self._return_pyramid:
+            raise ValueError("out= takes no pyramid")
         with torch.cuda.device(self.device):
             stream = self._begin()
             if img.device.type == "cpu":
@@ -236,7 +267,11 @@ class DetectProgram(_Program):
             if self.bucketed:
                 self._valid[0].fill_(float(valid_w))
                 self._valid[1].fill_(float(valid_h))
-            outs = self._replay(stream)
+            outs = self._replay(stream, None if out is None else (
+                [getattr(out.features, f) for f in _FEATURE_FIELDS]
+                + [out.lost, out.per_octave_counts]))
+        if out is not None:
+            return out
         nf = len(_FEATURE_FIELDS)
         out = DetectOutput(Features(**dict(zip(_FEATURE_FIELDS, outs[:nf]))),
                            outs[nf], outs[nf + 1])
@@ -284,3 +319,147 @@ class MatchProgram(_Program):
                 dst.copy_(src, non_blocking=True)
             outs = self._replay(stream)
         return Matches2NN(**dict(zip(_MATCH_FIELDS, outs)))
+
+
+class RingStepProgram(_Program):
+    """One step of the ring matcher's fold for ``na_l`` A rows and shards of
+    ``nb_l`` B rows (:func:`.parallel.ring_match.ring_step_into`) recorded
+    as a CUDA graph. The step folds the shard in its static buffer into
+    the running top-2 in place, with the shard's row offset and ``count_b``
+    read from device scalars, so that one graph serves every step of every
+    fold. A fold is :meth:`start` (the A rows and ``count_b``; the top-2
+    cleared), one :meth:`step` a shard, then :meth:`result`."""
+
+    def __init__(self, na_l: int, nb_l: int, *, device: DeviceLike = "cuda",
+                 pool: Optional[GraphPool] = None):
+        from .parallel.ring_match import empty_top2, ring_step_into
+        dev = resolve_device(device)
+        self._desc_a = torch.zeros((na_l, DESC_SIZE), dtype=torch.uint8,
+                                   device=dev)
+        self._shard = torch.zeros((nb_l, DESC_SIZE), dtype=torch.uint8,
+                                  device=dev)
+        self._offset, self._count_b = (
+            torch.zeros((), dtype=torch.int32, device=dev) for _ in range(2))
+        self._empty = empty_top2(na_l, dev)
+        self._top2 = tuple(t.clone() for t in self._empty)
+        self._stream: Optional[torch.cuda.Stream] = None
+
+        def run() -> List[torch.Tensor]:
+            ring_step_into(self._top2, self._desc_a, self._shard,
+                           self._offset, self._count_b)
+            return []
+
+        self._record(dev, run, pool)
+
+    def start(self, desc_a: torch.Tensor, count_b) -> None:
+        """Begin a fold of the A rows ``desc_a`` against B rows live up to
+        ``count_b`` (an int, or an int32 scalar tensor)."""
+        if desc_a.shape != self._desc_a.shape or desc_a.dtype != torch.uint8:
+            raise ValueError(f"expected uint8 A rows of shape "
+                             f"{tuple(self._desc_a.shape)}")
+        with torch.cuda.device(self.device):
+            self._stream = self._begin()
+            self._desc_a.copy_(desc_a, non_blocking=True)
+            if isinstance(count_b, torch.Tensor):
+                self._count_b.copy_(count_b.reshape(()), non_blocking=True)
+            else:
+                self._count_b.fill_(int(count_b))
+            for dst, src in zip(self._top2, self._empty):
+                dst.copy_(src)
+
+    def step(self, shard: torch.Tensor, offset: int) -> None:
+        """Fold the shard holding global B rows from ``offset`` on."""
+        if self._stream is None:
+            raise DeviceError("step() before start()")
+        if shard.shape != self._shard.shape or shard.dtype != torch.uint8:
+            raise ValueError(f"expected a uint8 shard of shape "
+                             f"{tuple(self._shard.shape)}")
+        with torch.cuda.device(self.device):
+            self._shard.copy_(shard, non_blocking=True)
+            self._offset.fill_(int(offset))
+            self._launch()
+
+    def result(self):
+        """The fold's top-2 ``(d1, i1, d2, i2)``, in new tensors."""
+        if self._stream is None:
+            raise DeviceError("result() before start()")
+        with torch.cuda.device(self.device):
+            top2 = tuple(t.clone() for t in self._top2)
+            self._pool.record_done(self._stream)
+        self._stream = None
+        return top2
+
+
+def _tensors_of(tree: Any) -> Iterator[torch.Tensor]:
+    """The tensors in a structure of tuples, lists and dicts."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors_of(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors_of(v)
+
+
+class StageProgram(_Program):
+    """``fn()`` recorded as a CUDA graph, where ``fn`` reads the tensors it
+    needs in place: the static ``inputs`` given here, or static outputs of
+    a program recorded before it in the same pool (a stage of the staged
+    detector). ``program(*values)`` copies ``values`` into ``inputs``,
+    replays and returns ``fn``'s result, a structure of tuples, lists and
+    dicts whose tensors are the graph's own buffers: the next stage reads
+    them, and whatever outlives the next call of the pool is copied out by
+    the caller, who then calls the pool's :meth:`GraphPool.record_done`.
+
+    Programs of one pool replay in the order they were recorded, or a later
+    one's buffers may hold an earlier one's scratch: a stage is recorded
+    after the stages whose outputs it reads, and those outputs are alive
+    while it records, so its scratch never lies in them."""
+
+    def __init__(self, fn: Callable[[], Any], *,
+                 inputs: Sequence[torch.Tensor] = (),
+                 device: DeviceLike = "cuda",
+                 pool: Optional[GraphPool] = None):
+        dev = resolve_device(device)
+        self._inputs = tuple(inputs)
+        self.outputs: Any = None
+
+        def run() -> List[torch.Tensor]:
+            self.outputs = fn()
+            return list(_tensors_of(self.outputs))
+
+        self._record(dev, run, pool)
+
+    def __call__(self, *values: torch.Tensor) -> Any:
+        with torch.cuda.device(self.device):
+            self._begin()
+            for dst, src in zip(self._inputs, values):
+                dst.copy_(src, non_blocking=True)
+            self._launch()
+        return self.outputs
+
+    def close(self) -> None:
+        super().close()
+        self.outputs = None
+
+
+class EagerStage:
+    """The CPU's counterpart of a :class:`StageProgram`: the same ``fn`` on
+    the same static inputs, run eagerly at each call (a program needs a
+    card)."""
+
+    def __init__(self, fn: Callable[[], Any], *,
+                 inputs: Sequence[torch.Tensor] = ()):
+        self._fn = fn
+        self._inputs = tuple(inputs)
+        self.outputs: Any = None
+
+    def __call__(self, *values: torch.Tensor) -> Any:
+        for dst, src in zip(self._inputs, values):
+            dst.copy_(src)
+        self.outputs = self._fn()
+        return self.outputs
+
+    def close(self) -> None:
+        self.outputs = None

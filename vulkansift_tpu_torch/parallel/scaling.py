@@ -73,13 +73,17 @@ def measure_dp_scaling(config: SiftConfig, width: int, height: int, *,
         secs = 0.0
         if mesh.get_coordinate() is not None:
             fn = make_dp_detect_fn(config, width, height, mesh, device=dev)
-            local = shard_batch(images, mesh, device=dev)
-            fn(local).features.count.cpu()  # warm-up (and kernel build)
-            dist.barrier(group=mesh.get_group())
-            t0 = time.perf_counter()
-            for _ in range(iters):
+            try:
+                local = shard_batch(images, mesh, device=dev)
+                # Warm-up: the kernels' build and, on a card, the program's.
                 fn(local).features.count.cpu()
-            secs = time.perf_counter() - t0
+                dist.barrier(group=mesh.get_group())
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    fn(local).features.count.cpu()
+                secs = time.perf_counter() - t0
+            finally:
+                fn.close()
         slowest = torch.tensor([secs], dtype=torch.float64, device=dev)
         dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
         dt = float(slowest.item()) / (iters * batch)
