@@ -86,11 +86,25 @@
      ring's ``RingStepProgram`` replays byte-equal to the eager fold;
      ms both ways, capture seconds, pool bytes);
    - SfM on a synthetic scene (8 cameras, 4096 points, 0.3 px noise):
-     ``reconstruct_sequence`` on the card (final cost < 1 px^2, ATE <
-     0.05, relative rotations < 1 degree) and against its CPU run (poses
-     within 1e-3), ``make_distributed_ba`` against ``bundle_adjust``, and
-     the times of the reconstruction, RANSAC a pair, the 8-point SVDs and
-     one BA iteration.
+     ``reconstruct_sequence`` on the card, its matches, RANSAC and BA
+     replaying recorded programs (final cost < 1 px^2, ATE < 0.05,
+     relative rotations < 1 degree, ``SFM_CAMS - 1`` matcher launches
+     through ``MatchProgram`` replays) and against its CPU run (poses
+     within 1e-3); one reconstruction with ``max_pairs_gap=2`` (loop
+     edges: the pose-graph program runs, the same gates, one matcher
+     launch a pair); ``make_distributed_ba`` (its recorded program, the
+     ``all_reduce``s inside the graph) against ``bundle_adjust`` and its
+     eager run; the times of the reconstruction, RANSAC a pair, the
+     8-point solver and one BA iteration (replays), beside the library
+     SVD's RANSAC and solver that the program replaced (the solver within
+     1e-4 of the float64 SVD's E); then the
+     ``compiled_sfm`` line: each SfM program (RANSAC, pose graph, BA) on
+     the scene against its eager path on the card (RANSAC byte for byte
+     with the same draws, pose graph within 1e-5, BA final cost within
+     1e-4 relative and poses within 1e-3), ms both ways, capture +
+     instantiate s, pool bytes and the reserved bytes returned at
+     ``close()``. A capture that meets a host synchronisation fails, and
+     the failure is not caught.
 8. Drives the port's perf harness, examples and native IO, each with the
    launch counters set to 0 just before and read just after (none of it
    needs cv2, matplotlib or sklearn):
@@ -126,8 +140,9 @@ with these.
 NCCL process each (``torch.multiprocessing``, a ``file://`` store under
 ``build/``): on every rank the ring at 16384x16384 and at count_b 16001
 (ties on the kernel's and the shards' edges), dp detect of two frames a
-rank and the distributed BA of the SfM scene, each against the
-single-device result on that rank's card, their times, and
+rank and the distributed BA of the SfM scene (its recorded program,
+the ``all_reduce``s inside the graph, and its eager run), each against
+the single-device result on that rank's card, their times, and
 ``measure_dp_scaling`` at 1, 2, 4, ... cards.
 
 Any failure raises, so the script exits non-zero and prints no result
@@ -1761,8 +1776,9 @@ def multi_device_checks(mesh, dev: torch.device) -> dict:
     detects, bit for bit; the ring at 16384x16384 and at count_b 16001 with
     ties on the kernel's and the shards' edges against ``match_2nn_fused``
     on this rank's rows, bit for bit, with n matcher launches a rank;
-    ``make_distributed_ba`` against ``bundle_adjust`` (the JAX test's
-    bars); then the dp scaling points at 1, 2, 4, 8 ranks up to n."""
+    ``make_distributed_ba`` (its recorded program) against
+    ``bundle_adjust`` and against its own eager run (the JAX test's bars);
+    then the dp scaling points at 1, 2, 4, 8 ranks up to n."""
     from vulkansift_tpu_torch import parallel, sfm
     n, rank = mesh.size(), mesh.get_local_rank()
     res = dict(rank=rank, device=str(dev))
@@ -1829,7 +1845,8 @@ def multi_device_checks(mesh, dev: torch.device) -> dict:
                              pt_idx, uv, dev, multiple=n)
     dist_ba = sfm.make_distributed_ba(mesh, nb_iters=10, nb_cg_iters=20,
                                       device=dev)
-    r_d = dist_ba(problem)
+    r_d = dist_ba(problem)         # records the program (and warms up)
+    r_e, r_e2 = (eager_distributed_ba(dist_ba, problem) for _ in range(2))
     r_s = sfm.bundle_adjust(problem, nb_iters=10, nb_cg_iters=20)
     err = float((r_d.poses - r_s.poses).abs().max())
     check(float(r_d.final_cost) < 0.05 * float(r_d.initial_cost),
@@ -1838,14 +1855,29 @@ def multi_device_checks(mesh, dev: torch.device) -> dict:
           <= 1e-2 * float(r_s.final_cost),
           f"distributed BA on {n} ranks vs bundle_adjust: poses {err}, costs "
           f"{float(r_d.final_cost)} / {float(r_s.final_cost)}")
+    # This BA keeps the JAX package's gauge (scale free, 10 iterations):
+    # its cost moves with the atomics' summation order, between two eager
+    # runs too (reported), so the replay is held to the JAX test's bars.
+    ba_gate(r_d, r_e, f"distributed BA on {n} ranks, replayed vs eager",
+            cost_rtol=1e-2)
+    prog = dist_ba.programs.values()[0]
     res.update(ba_pose_err=err, ba_final_cost=float(r_d.final_cost),
                single_ba_final_cost=float(r_s.final_cost),
-               ba_observations=len(uv),
+               ba_eager_pose_err=float((r_d.poses - r_e.poses).abs().max()),
+               ba_eager_cost_rel=cost_rel(r_d, r_e),
+               ba_eager_vs_eager_cost_rel=cost_rel(r_e2, r_e),
+               ba_observations=len(uv), ba_capture=DISTRIBUTED_BA_CAPTURE,
                distributed_ba_ms=rank_ms(lambda: dist_ba(problem), 3),
+               distributed_ba_eager_ms=rank_ms(
+                   lambda: eager_distributed_ba(dist_ba, problem), 3),
                single_ba_ms=rank_ms(lambda: sfm.bundle_adjust(
-                   problem, nb_iters=10, nb_cg_iters=20), 3))
-    print(f"rank {rank}/{n}: distributed BA agrees with bundle_adjust "
-          f"(poses {err:.3g})", flush=True)
+                   problem, nb_iters=10, nb_cg_iters=20), 3),
+               distributed_ba_program=program_stats(prog))
+    dist_ba.close()
+    print(f"rank {rank}/{n}: distributed BA ({DISTRIBUTED_BA_CAPTURE}) "
+          f"agrees with bundle_adjust (poses {err:.3g}) and with its eager "
+          f"run; {res['distributed_ba_ms']:.2f} ms replayed, "
+          f"{res['distributed_ba_eager_ms']:.2f} ms eager", flush=True)
 
     zero_launches()
     res["scaling"] = parallel.measure_dp_scaling(
@@ -1854,6 +1886,90 @@ def multi_device_checks(mesh, dev: torch.device) -> dict:
         device=dev)
     res["scaling_launches"] = read_launches()
     return res
+
+
+# The distributed BA's capture design (see sfm/bundle_adjustment.py).
+def eager_distributed_ba(dist_ba, problem):
+    """The distributed BA's LM iterations run eagerly on this rank's card,
+    ``all_reduce``s and all: the reference its program is held to."""
+    from vulkansift_tpu_torch.sfm import bundle_adjustment
+    return bundle_adjustment._lm(dist_ba._part(problem), psum=dist_ba._psum,
+                                 **dist_ba._kw)
+
+
+def eager_bundle_adjust(problem, *, nb_iters: int, nb_cg_iters: int = 20,
+                        fix_scale: bool = False):
+    """``bundle_adjust``'s LM iterations run eagerly on the card."""
+    from vulkansift_tpu_torch.sfm import bundle_adjustment
+    return bundle_adjustment._lm(
+        problem, nb_iters=nb_iters, nb_cg_iters=nb_cg_iters,
+        huber_delta=3.0, init_lambda=1e-3, fix_first_pose=True,
+        fix_scale=fix_scale)
+
+
+def eager_pose_graph(graph, nb_iters: int):
+    """``optimize_pose_graph``'s Gauss-Newton steps run eagerly."""
+    from vulkansift_tpu_torch.sfm import pose_graph
+    return pose_graph._iterate(graph, nb_iters, 1e-6)
+
+
+def svd_essential_8pt(r1, r2, dtype=torch.float32):
+    """The 8-point solver through ``torch.linalg.svd`` (in ``dtype``), as
+    the port ran it before RANSAC was recorded: the library's SVDs, which
+    synchronise with the host on a card."""
+    x1, y1, x2, y2 = r1[..., 0], r1[..., 1], r2[..., 0], r2[..., 1]
+    a = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1,
+                     torch.ones_like(x1)], -1).to(dtype)
+    _, _, vt = torch.linalg.svd(a, full_matrices=True)
+    u, s, vt2 = torch.linalg.svd(vt[..., -1, :].unflatten(-1, (3, 3)))
+    m = (s[..., 0] + s[..., 1]) * 0.5
+    fixed = torch.stack([m, m, torch.zeros_like(m)], -1)
+    return ((u * fixed[..., None, :]) @ vt2).to(r1.dtype)
+
+
+def eager_ransac(r1, r2, valid, gen, solver=None, threshold=2e-5,
+                 nb_iters=256):
+    """``ransac_essential``'s function run eagerly on the card with the
+    draws of ``gen``: the reference its program is held to; with
+    ``solver``, that 8-point solver in place of the port's (the library
+    SVD's RANSAC, which the program replaced)."""
+    from vulkansift_tpu_torch.sfm import geometry
+    u = torch.rand((nb_iters, 8), generator=gen).to(r1.device)
+    saved = geometry.essential_8pt
+    geometry.essential_8pt = solver or saved
+    try:
+        return geometry._ransac(r1, r2, valid, u, threshold)
+    finally:
+        geometry.essential_8pt = saved
+
+
+def essential_err(e, ref) -> float:
+    """Largest entry difference of E and the reference, each scaled to
+    unit norm, E signed the reference's way."""
+    e, ref = (x.double() / torch.linalg.matrix_norm(x.double())[..., None,
+                                                                 None]
+              for x in (e, ref))
+    sign = torch.sign((e * ref).sum((-2, -1)))[..., None, None]
+    return float((e * sign - ref).abs().max())
+
+
+DISTRIBUTED_BA_CAPTURE = ("all_reduce inside the graph: one CUDA graph a "
+                          "rank for each LM iteration, collectives included")
+
+
+def cost_rel(a, b) -> float:
+    return abs(float(a.final_cost) - float(b.final_cost)) \
+        / float(b.final_cost)
+
+
+def ba_gate(got, ref, what: str, cost_rtol: float = 1e-4) -> None:
+    """A replayed BA against its eager run: final cost within ``cost_rtol``
+    relative, poses within 1e-3 (``index_add_`` adds with atomics, so the
+    two cannot be byte-equal)."""
+    err = float((got.poses - ref.poses).abs().max())
+    rel = cost_rel(got, ref)
+    check(err <= 1e-3 and rel <= cost_rtol,
+          f"{what}: poses differ by {err}, final costs by {rel} relative")
 
 
 def program_stats(prog) -> dict:
@@ -2080,20 +2196,58 @@ def sfm_ba_problem(rng, poses, pts, cam_idx, pt_idx, uv, dev,
                      camera=Camera(*SFM_CAMERA))
 
 
+SFM_KW = dict(ratio=0.8, ransac_iters=256, ba_iters=30, seed=0)
+
+
+def sfm_gates(rec, truth: np.ndarray, what: str):
+    """The JAX end-to-end test's bars: final cost < 1 px^2, ATE < 0.05,
+    relative rotations < 1 degree. Returns (ATE, rotation errors)."""
+    from vulkansift_tpu_torch import sfm
+    ate = sfm.absolute_trajectory_error(rec.poses, truth)
+    rot = rotation_errors_deg(rec.poses, truth)
+    check(rec.final_cost < 1.0, f"{what}: final cost {rec.final_cost}")
+    check(ate < 0.05, f"{what}: ATE {ate}")
+    check(max(rot) < 1.0, f"{what}: relative rotation errors {rot} deg")
+    return ate, rot
+
+
+def pair_rays(cam, cam_idx, pt_idx, uv, a: int, b: int):
+    """Rays of the points cameras ``a`` and ``b`` both see, on the card,
+    padded as a reconstruction pads RANSAC's inputs, and the valid mask."""
+    from vulkansift_tpu_torch.sfm.reconstruction import ransac_rows
+    common = np.intersect1d(pt_idx[cam_idx == a], pt_idx[cam_idx == b])
+    npad = ransac_rows(len(common))
+
+    def rays(c):
+        sel = cam_idx == c
+        order = np.searchsorted(pt_idx[sel], common)
+        r = cam.unproject(torch.from_numpy(uv[sel][order]))
+        return torch.cat([r, torch.zeros((npad - len(common), 3))]).cuda()
+
+    valid = torch.from_numpy(np.arange(npad) < len(common)).cuda()
+    return rays(a), rays(b), valid
+
+
 def run_sfm() -> dict:
-    """``reconstruct_sequence`` on the card (final cost < 1 px^2, ATE <
-    0.05, relative rotations < 1 degree) and, each of its three card runs,
-    against its CPU run with the same seed (poses within 1e-3); times of
-    the reconstruction, of RANSAC a pair, of the 8-point SVDs and of one BA
-    iteration."""
+    """``reconstruct_sequence`` on the card, replaying its recorded
+    programs (final cost < 1 px^2, ATE < 0.05, relative rotations < 1
+    degree; ``SFM_CAMS - 1`` matcher launches, through ``MatchProgram``
+    replays) and, each of its three card runs, against its CPU run with
+    the same seed (poses within 1e-3); one reconstruction with
+    ``max_pairs_gap=2``, whose loop edges run the pose-graph program (the
+    same gates; a matcher launch a pair; ``pose_graph_iters`` replays);
+    times of the reconstructions, of RANSAC a pair and of the 8-point
+    solver, each beside the library SVD's eager one that the program
+    replaced (the solver within 1e-4 of the float64 SVD's E), and of one
+    BA iteration."""
     from vulkansift_tpu_torch import sfm
     rng = np.random.default_rng(7)
     poses, pts, cam_idx, pt_idx, uv = sfm_scene(rng)
     feats = sfm_features(rng, cam_idx, pt_idx, uv)
     cam = sfm.Camera(*SFM_CAMERA)
-    kw = dict(ratio=0.8, ransac_iters=256, ba_iters=30, seed=0)
+    kw = SFM_KW
     card_poses = [sfm.reconstruct_sequence(feats, cam, device="cuda",
-                                           **kw).poses]  # warm-up
+                                           **kw).poses]  # records programs
     zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2103,11 +2257,7 @@ def run_sfm() -> dict:
     check(launches["match_2nn"] == SFM_CAMS - 1,
           f"SfM: {launches['match_2nn']} matcher launches, expected "
           f"{SFM_CAMS - 1}")
-    ate = sfm.absolute_trajectory_error(rec.poses, poses)
-    rot = rotation_errors_deg(rec.poses, poses)
-    check(rec.final_cost < 1.0, f"SfM final cost {rec.final_cost}")
-    check(ate < 0.05, f"SfM ATE {ate}")
-    check(max(rot) < 1.0, f"SfM relative rotation errors {rot} deg")
+    ate, rot = sfm_gates(rec, poses, "SfM")
     # Where the reconstruction's time goes on the card.
     from torch.profiler import ProfilerActivity, profile
     card_poses.append(rec.poses)
@@ -2133,27 +2283,54 @@ def run_sfm() -> dict:
     pose_err = max(pose_errs)
     check(pose_err <= 1e-3, f"SfM card vs CPU poses differ by {pose_errs}")
 
-    # RANSAC of one pair (cameras 0 and 1, their common points) and the
-    # batched 8-point SVDs alone.
-    common = np.intersect1d(pt_idx[cam_idx == 0], pt_idx[cam_idx == 1])
+    # Loop edges: the pose graph runs, as a recorded program.
+    kw2 = dict(kw, max_pairs_gap=2)
+    sfm.reconstruct_sequence(feats, cam, device="cuda", **kw2)
+    pg = sfm.pose_graph.PROGRAMS.values()[-1]
+    replays = pg.replays
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec2 = sfm.reconstruct_sequence(feats, cam, device="cuda", **kw2)
+    gap2_ms = (time.perf_counter() - t0) * 1e3
+    gap2_launches = read_launches()
+    pairs = 2 * SFM_CAMS - 3
+    check(gap2_launches["match_2nn"] == pairs,
+          f"SfM max_pairs_gap=2: {gap2_launches['match_2nn']} matcher "
+          f"launches, expected {pairs}")
+    check(sfm.pose_graph.PROGRAMS.values()[-1] is pg
+          and pg.replays - replays == 15,
+          "SfM max_pairs_gap=2: the pose-graph program did not replay "
+          "pose_graph_iters times")
+    ate2, rot2 = sfm_gates(rec2, poses, "SfM max_pairs_gap=2")
 
-    def rays(c):
-        sel = cam_idx == c
-        order = np.searchsorted(pt_idx[sel], common)
-        return cam.unproject(torch.from_numpy(uv[sel][order]).cuda())
-
-    r1, r2 = rays(0), rays(1)
-    valid = torch.ones(len(common), dtype=torch.bool, device="cuda")
+    # RANSAC of one pair (cameras 0 and 1, their common points, padded)
+    # and the batched 8-point solver alone.
+    r1, r2, valid = pair_rays(cam, cam_idx, pt_idx, uv, 0, 1)
     gen = torch.Generator().manual_seed(0)
     ransac_ms = median_ms(lambda: sfm.ransac_essential(
         r1, r2, valid, gen, threshold=2e-5, nb_iters=256)[2].item(),
         PLAIN_REPS)
-    idx = torch.randint(0, len(common), (256, 8), generator=gen).cuda()
-    svd_ms = median_ms(lambda: sfm.essential_8pt(r1[idx], r2[idx]),
+    # The library SVD's RANSAC, eager, which the program replaced.
+    ransac_svd_ms = median_ms(lambda: eager_ransac(
+        r1, r2, valid, gen, svd_essential_8pt)[2].item(), PLAIN_REPS)
+    # 256 samples of 8 distinct points (a repeated point leaves the null
+    # vector any one of a plane, in either solver).
+    idx = torch.argsort(torch.rand((256, int(valid.sum())), generator=gen),
+                        -1)[:, :8].cuda()
+    solver_ms = median_ms(lambda: sfm.essential_8pt(r1[idx], r2[idx]),
+                          PLAIN_REPS)
+    svd_ms = median_ms(lambda: svd_essential_8pt(r1[idx], r2[idx]),
                        PLAIN_REPS)
+    solver_err = essential_err(
+        sfm.essential_8pt(r1[idx], r2[idx]),
+        svd_essential_8pt(r1[idx], r2[idx], torch.float64))
+    check(solver_err <= 1e-4, f"SfM: the 8-point solver is {solver_err} "
+                              f"from the float64 SVD's E")
 
     problem = sfm_ba_problem(np.random.default_rng(8), poses, pts, cam_idx,
-                             pt_idx, uv, "cuda")
+                             pt_idx, uv, "cuda",
+                             multiple=sfm.reconstruction.ba_rows(len(uv)))
 
     def ba(iters):
         return float(sfm.bundle_adjust(problem, nb_iters=iters,
@@ -2167,10 +2344,134 @@ def run_sfm() -> dict:
                ate=ate, rotation_err_deg=rot, card_vs_cpu_pose_err=pose_err,
                card_vs_cpu_pose_errs=pose_errs,
                reconstruction_ms=wall_ms, cpu_reconstruction_ms=cpu_ms,
-               ransac_pair_ms=ransac_ms, ransac_pair_points=len(common),
-               svd_8pt_256_ms=svd_ms, ba_iteration_ms=ba_iter_ms,
-               ba_observations=len(uv), profile=breakdown)
+               gap2=dict(launches=gap2_launches, pairs=pairs,
+                         reconstruction_ms=gap2_ms,
+                         final_cost=rec2.final_cost, ate=ate2,
+                         rotation_err_deg=rot2,
+                         pose_graph_replays=pg.replays - replays),
+               ransac_pair_ms=ransac_ms, ransac_pair_rows=len(valid),
+               ransac_pair_points=int(valid.sum()),
+               ransac_pair_svd_ms=ransac_svd_ms,
+               essential_8pt_256_ms=solver_ms, svd_8pt_256_ms=svd_ms,
+               essential_8pt_vs_svd_err=solver_err,
+               ba_iteration_ms=ba_iter_ms,
+               ba_observations=len(uv), ba_rows=problem.cam_idx.shape[0],
+               profile=breakdown)
     print("sfm " + json.dumps(res), flush=True)
+    return res
+
+
+def release_programs(cache) -> dict:
+    """Every program of ``cache``: its build figures, then the reserved
+    bytes that closing them returns."""
+    stats = [program_stats(p) for p in cache.values()]
+    before = _reserved_after_release()
+    cache.close()
+    return dict(programs=stats, reserved_bytes=before,
+                returned_at_close=before - _reserved_after_release())
+
+
+def run_compiled_sfm() -> dict:
+    """Each SfM program on the scene against its eager path on the card
+    (the same functions run eagerly), built fresh: RANSAC of cameras 0
+    and 1 (rows padded as a reconstruction pads them) byte for byte with
+    the same draws (and timed beside the library SVD's eager RANSAC), the
+    pose graph of the scene's cameras with edges to the next two within
+    1e-5, BA of the perturbed scene padded to a power of two (30
+    iterations, 41 CG steps, ``fix_scale``, as the reconstruction runs it)
+    by :func:`ba_gate`; replayed and eager ms, capture + instantiate s,
+    pool bytes, reserved bytes returned at ``close()``. The reconstruction's
+    matchers (``MatchProgram``) report their figures too."""
+    from vulkansift_tpu_torch import sfm
+    from vulkansift_tpu_torch.sfm import (bundle_adjustment, geometry,
+                                          pose_graph, reconstruction)
+    res = dict(match=release_programs(reconstruction.PROGRAMS))
+    for cache in (geometry.PROGRAMS, pose_graph.PROGRAMS,
+                  bundle_adjustment.PROGRAMS):
+        cache.close()
+    rng = np.random.default_rng(7)
+    poses, pts, cam_idx, pt_idx, uv = sfm_scene(rng)
+    cam = sfm.Camera(*SFM_CAMERA)
+
+    r1, r2, valid = pair_rays(cam, cam_idx, pt_idx, uv, 0, 1)
+
+    def ransac(record):
+        gen = torch.Generator().manual_seed(0)
+        if not record:
+            return eager_ransac(r1, r2, valid, gen)
+        return sfm.ransac_essential(r1, r2, valid, gen, threshold=2e-5,
+                                    nb_iters=256)
+
+    ransac(True)
+    got, ref = ransac(True), ransac(False)
+    check(all(_same_bytes(a, b) for a, b in zip(got, ref)),
+          "compiled RANSAC: E, inliers or count differ from the eager run")
+    res["ransac"] = dict(
+        rows=len(valid), points=int(valid.sum()), inliers=int(got[2]),
+        graph_ms=median_ms(lambda: ransac(True)[2].item(), TIMED_FRAMES),
+        eager_ms=median_ms(lambda: ransac(False)[2].item(), PLAIN_REPS),
+        svd_eager_ms=median_ms(lambda: eager_ransac(
+            r1, r2, valid, torch.Generator().manual_seed(0),
+            svd_essential_8pt)[2].item(), PLAIN_REPS),
+        **release_programs(geometry.PROGRAMS))
+
+    n = SFM_CAMS
+    truth = sfm.SE3.from_tangent(torch.from_numpy(poses)).inverse()
+    edges = [(i, j) for i in range(n) for j in range(i + 1, min(i + 3, n))]
+    meas = torch.stack([
+        sfm.SE3(truth.r[i], truth.t[i]).inverse().compose(
+            sfm.SE3(truth.r[j], truth.t[j])).log() for i, j in edges])
+    init = truth.log() + 0.02 * torch.from_numpy(
+        rng.standard_normal((n, 6)).astype(np.float32))
+    init[0] = truth.log()[0]
+    graph = sfm.PoseGraph(
+        init.cuda(), torch.tensor([e[0] for e in edges]).cuda(),
+        torch.tensor([e[1] for e in edges]).cuda(), meas.cuda(),
+        torch.ones(len(edges)).cuda())
+
+    def pgo(record):
+        if not record:
+            return eager_pose_graph(graph, 15)
+        return sfm.optimize_pose_graph(graph, nb_iters=15)
+
+    pgo(True)
+    got, ref = pgo(True), pgo(False)
+    err = float((got.poses - ref.poses).abs().max())
+    check(err <= 1e-5, f"compiled pose graph: poses differ from the eager "
+                       f"run by {err}")
+    res["pose_graph"] = dict(
+        nodes=n, edges=len(edges), iters=15, max_abs_err=err,
+        cost=float(sfm.pose_graph_cost(got)),
+        initial_cost=float(sfm.pose_graph_cost(graph)),
+        graph_ms=median_ms(lambda: pgo(True).poses.sum().item(),
+                           TIMED_FRAMES),
+        eager_ms=median_ms(lambda: pgo(False).poses.sum().item(),
+                           PLAIN_REPS),
+        **release_programs(pose_graph.PROGRAMS))
+
+    problem = sfm_ba_problem(np.random.default_rng(8), poses, pts, cam_idx,
+                             pt_idx, uv, "cuda",
+                             multiple=reconstruction.ba_rows(len(uv)))
+    kw = dict(nb_iters=30, nb_cg_iters=max(20, 6 * (SFM_CAMS - 1) - 1),
+              fix_scale=True)
+
+    def ba(record):
+        if not record:
+            return eager_bundle_adjust(problem, **kw)
+        return sfm.bundle_adjust(problem, **kw)
+
+    ba(True)
+    got, ref = ba(True), ba(False)
+    ba_gate(got, ref, "compiled BA")
+    res["ba"] = dict(
+        observations=len(uv), rows=problem.cam_idx.shape[0],
+        final_cost=float(got.final_cost),
+        eager_final_cost=float(ref.final_cost),
+        pose_err=float((got.poses - ref.poses).abs().max()),
+        graph_ms=median_ms(lambda: float(ba(True).final_cost), PLAIN_REPS),
+        eager_ms=median_ms(lambda: float(ba(False).final_cost), PLAIN_REPS),
+        **release_programs(bundle_adjustment.PROGRAMS))
+    print("compiled_sfm " + json.dumps(res), flush=True)
     return res
 
 
@@ -2196,6 +2497,7 @@ def run_later_paths(img: np.ndarray) -> dict:
         {k: v for k, v in compiled.items() if k != "dp"}), flush=True)
     res["compiled_parallel"] = compiled
     res["sfm"] = run_sfm()
+    res["compiled_sfm"] = run_compiled_sfm()
     return res
 
 
@@ -2426,7 +2728,10 @@ def run_cards(n: int) -> list:
     print("cards_summary " + json.dumps(dict(
         ranks=n, ring_ms=[r["ring_ms"] for r in every],
         single_match_ms=[r["single_match_ms"] for r in every],
+        ba_capture=every[0]["ba_capture"],
         distributed_ba_ms=[r["distributed_ba_ms"] for r in every],
+        distributed_ba_eager_ms=[r["distributed_ba_eager_ms"]
+                                 for r in every],
         single_ba_ms=[r["single_ba_ms"] for r in every],
         scaling=pts, cards=every[0]["scaling"]["cards"])), flush=True)
     return every
@@ -2548,6 +2853,7 @@ def main() -> int:
              **{f"fold_{n}": v for n, v in md["fold_launches"].items()},
              "scaling": md["scaling_launches"],
              "sfm": later["sfm"]["launches"],
+             "sfm_gap2": later["sfm"]["gap2"]["launches"],
              **perf["runtime"]["launches"],
              "metrics": perf["metrics"]["launches"],
              **perf["examples"]["launches"]}

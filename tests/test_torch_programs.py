@@ -1,7 +1,8 @@
 """The paths the port records as CUDA graphs beyond the instance's
 (``compiled.RingStepProgram``, ``compiled.StageProgram``, the data-parallel
-detect's ``DetectProgram``), checked on the CPU, where each runs the same
-function its program records, eagerly.
+detect's ``DetectProgram``, the SfM back end's ``LoopProgram``), checked
+on the CPU, where each runs the same function its program records,
+eagerly.
 
 * the staged detector's bucket function equals the JAX package's, and the
   S2 and S3 keys the port's detector builds equal the profiles the JAX
@@ -35,8 +36,8 @@ from test_torch_parallel import RING_CASES
 from vulkansift_tpu import detector as jax_detector
 import vulkansift_tpu_torch as vt
 from vulkansift_tpu_torch import detector as t_detector
-from vulkansift_tpu_torch.compiled import (GraphPool, RingStepProgram,
-                                           StageProgram)
+from vulkansift_tpu_torch.compiled import (GraphPool, LoopProgram,
+                                           RingStepProgram, StageProgram)
 from vulkansift_tpu_torch.errors import DeviceError
 from vulkansift_tpu_torch.ops import cuda_lib
 from vulkansift_tpu_torch.ops.match import match_2nn_fused
@@ -198,8 +199,14 @@ def _stage_program():
                         pool=GraphPool())
 
 
-@pytest.mark.parametrize("make", [_ring_program, _stage_program],
-                         ids=["ring_step", "stage"])
+def _loop_program():
+    return LoopProgram(lambda state, inputs: (state[0] + inputs[0],),
+                       (torch.zeros(4),), (torch.ones(4),))
+
+
+@pytest.mark.parametrize("make", [_ring_program, _stage_program,
+                                  _loop_program],
+                         ids=["ring_step", "stage", "loop"])
 def test_new_programs_need_a_card(make):
     """A recorded program is a card's: on the CPU it raises, it does not
     run its function eagerly in its place; inside force_plain it raises

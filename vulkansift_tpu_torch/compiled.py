@@ -16,7 +16,16 @@ records one call of the same function as a CUDA graph and replays it:
 * :class:`StageProgram` -- one stage of the staged
   :class:`~.detector.SiftDetector`, which reads its input in place (the
   stage's static image, or an earlier stage's static outputs) and whose
-  outputs stay in the graph's buffers for the next stage.
+  outputs stay in the graph's buffers for the next stage;
+* :class:`LoopProgram` -- one step of an iteration (an LM iteration of
+  bundle adjustment, a Gauss-Newton step of the pose graph, RANSAC's
+  batch of hypotheses) whose last operations write the new state into its
+  static state buffers, so that ``k`` replays chain on the device: the
+  counterpart of a ``lax.scan`` or ``fori_loop`` body under ``jax.jit``.
+
+Programs are kept under their keys in a :class:`ProgramCache`, an LRU
+like a jit cache: an instance's detect programs, a staged detector's
+stages by resolution, and each SfM module's programs.
 
 Building a program runs its function once on a side stream (the warm-up:
 the kernels' nvcc build and one-time attributes, the allocator's and
@@ -45,10 +54,12 @@ eagerly under the same keys (:class:`EagerStage` for a stage).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+from typing import (Any, Callable, Dict, Hashable, Iterator, List, Optional,
+                    Sequence)
 
 import numpy as np
 import torch
@@ -149,6 +160,7 @@ class _Program:
         # torch.cuda.graph instantiates the graph as the capture ends.
         self.capture_seconds = t2 - t1
         self._graph: Optional[torch.cuda.CUDAGraph] = graph
+        self.replays = 0
         self._launches = launches
         self._outputs: Optional[List[torch.Tensor]] = outs
 
@@ -176,6 +188,7 @@ class _Program:
 
     def _launch(self) -> None:
         self._graph.replay()
+        self.replays += 1
         for wrapper, n in self._launches.items():
             wrapper.launches += n
 
@@ -442,6 +455,124 @@ class StageProgram(_Program):
     def close(self) -> None:
         super().close()
         self.outputs = None
+
+
+class LoopProgram(_Program):
+    """``step(state, inputs) -> new state`` recorded as a CUDA graph whose
+    last operations copy the new state into the static ``state`` buffers,
+    so that replays chain on the device with no host work between them.
+    ``step`` reads the static ``inputs`` in place and must not synchronise
+    with the host (the capture fails if it does, and the failure raises).
+
+    The static buffers start as copies of the ``state`` and ``inputs``
+    given here, on ``state[0]``'s device; the warm-up runs one step on
+    them. ``program(k, state, inputs)`` copies the values given (either
+    may be left out, or cut short) into the static buffers, replays ``k``
+    times and returns the final state in new tensors. A step may ignore
+    the state it is given and write a result there: replayed once, that is
+    a plain recorded function of its inputs (RANSAC's). Calls must not
+    overlap (see :class:`ProgramCache`'s ``lock``)."""
+
+    def __init__(self, step: Callable[[tuple, tuple], Sequence[torch.Tensor]],
+                 state: Sequence[torch.Tensor],
+                 inputs: Sequence[torch.Tensor] = (), *,
+                 pool: Optional[GraphPool] = None):
+        dev = state[0].device
+        self.state = tuple(torch.empty_like(t, device=dev).copy_(t)
+                           for t in state)
+        self.inputs = tuple(torch.empty_like(t, device=dev).copy_(t)
+                            for t in inputs)
+
+        def run() -> List[torch.Tensor]:
+            new = step(self.state, self.inputs)
+            for dst, src in zip(self.state, new):
+                dst.copy_(src)
+            return []
+
+        self._record(dev, run, pool)
+
+    def __call__(self, k: int, state: Sequence[torch.Tensor] = (),
+                 inputs: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
+        with torch.cuda.device(self.device):
+            stream = self._begin()
+            for dst, src in zip(self.inputs, inputs):
+                dst.copy_(src, non_blocking=True)
+            for dst, src in zip(self.state, state):
+                dst.copy_(src, non_blocking=True)
+            for _ in range(k):
+                self._launch()
+            outs = [t.clone() for t in self.state]
+            self._pool.record_done(stream)
+        return outs
+
+    def close(self) -> None:
+        super().close()
+        self.state = self.inputs = ()
+
+
+class ProgramCache:
+    """Programs under their keys, at most ``size`` of them (at least one),
+    the least recently used closed first: the counterpart of a ``jax.jit``
+    cache. ``get(key, build)`` returns the entry of ``key``, made by
+    ``build()`` at its first use once the least recently used entries
+    beyond ``size - 1`` are closed (so that their memory serves the new
+    program). An entry is closed where it has ``close()``: on the CPU a
+    cache holds eager functions under the same keys. ``pool(device)`` is
+    the cache's :class:`GraphPool` for a device, for programs that share
+    one. Reads as a mapping of keys to entries, least recently used first.
+
+    A program's static buffers serve every call, so two calls must not
+    overlap: a caller that may share the cache with other threads holds
+    ``lock`` from ``get`` to the end of its call (``get`` and ``close``
+    take it themselves)."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.lock = threading.RLock()
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+        self._pools: Dict[torch.device, GraphPool] = {}
+
+    def pool(self, device: torch.device) -> GraphPool:
+        with self.lock:
+            return self._pools.setdefault(device, GraphPool())
+
+    def get(self, key: Hashable, build: Callable[[], Any]) -> Any:
+        with self.lock:
+            if key in self._entries:
+                self._entries.move_to_end(key)
+                return self._entries[key]
+            while len(self._entries) >= max(self.size, 1):
+                _close(self._entries.popitem(last=False)[1])
+            entry = self._entries[key] = build()
+            return entry
+
+    def __getitem__(self, key: Hashable) -> Any:
+        return self._entries[key]
+
+    def __iter__(self) -> Iterator[Hashable]:
+        return iter(list(self._entries))
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def items(self) -> List[tuple]:
+        return list(self._entries.items())
+
+    def values(self) -> List[Any]:
+        return list(self._entries.values())
+
+    def close(self) -> None:
+        """Close every entry (the pools' memory is freed at the
+        allocator's next ``empty_cache``)."""
+        with self.lock:
+            while self._entries:
+                _close(self._entries.popitem(last=False)[1])
+
+
+def _close(entry: Any) -> None:
+    close = getattr(entry, "close", None)
+    if close is not None:
+        close()
 
 
 class EagerStage:

@@ -40,7 +40,6 @@ minus pairs kept (sift_memory.c:1088-1102).
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import math
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -48,7 +47,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .compiled import EagerStage, GraphPool, StageProgram
+from .compiled import EagerStage, GraphPool, ProgramCache, StageProgram
 from .config import DescriptorFormat, SiftConfig
 from .ops import backhalf, extract, frontend, scale_space
 from .ops.descriptor import normalize_descriptor
@@ -109,14 +108,13 @@ class SiftDetector:
         self.desc_radius = max_descriptor_radius(config)
         self.ori_capacity = config.orientation_capacity
         self._pool = GraphPool()
-        # (width, height) -> _Resolution, least recently used first.
-        self._programs: collections.OrderedDict = collections.OrderedDict()
+        # (width, height) -> _Resolution, least recently used first; an
+        # evicted resolution closes its S1, S2 and S3 stages.
+        self._programs = ProgramCache(config.detect_cache_size)
 
     def close(self) -> None:
         """Free every recorded stage (a later detect records anew)."""
-        for res in self._programs.values():
-            res.close()
-        self._programs.clear()
+        self._programs.close()
 
     def _stage(self, fn, inputs: Sequence[torch.Tensor] = ()) -> Stage:
         if self.device.type == "cuda":
@@ -126,18 +124,13 @@ class SiftDetector:
 
     def _resolution(self, width: int, height: int, oct_res,
                     caps) -> _Resolution:
-        key = (width, height)
-        res = self._programs.get(key)
-        if res is not None:
-            self._programs.move_to_end(key)
-            return res
-        while len(self._programs) >= max(self.config.detect_cache_size, 1):
-            self._programs.popitem(last=False)[1].close()
-        image = torch.zeros((height, width), dtype=torch.uint8,
-                            device=self.device)
-        res = self._programs[key] = _Resolution(self._stage(
-            lambda: self._stage1(image, oct_res, caps), (image,)))
-        return res
+        def build() -> _Resolution:
+            image = torch.zeros((height, width), dtype=torch.uint8,
+                                device=self.device)
+            return _Resolution(self._stage(
+                lambda: self._stage1(image, oct_res, caps), (image,)))
+
+        return self._programs.get((width, height), build)
 
     # -- S1: pyramid + candidates ---------------------------------------
     def _stage1(self, image_u8: torch.Tensor, oct_res, caps):

@@ -31,7 +31,6 @@ same keys.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import os
 import time
@@ -40,7 +39,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .compiled import DetectProgram, GraphPool, MatchProgram
+from .compiled import DetectProgram, GraphPool, MatchProgram, ProgramCache
 from .config import SiftConfig, get_default_config
 from .errors import DeviceError, InvalidInputError, Result
 from .ops.match import match_2nn_fused
@@ -139,8 +138,7 @@ class SiftInstance:
             raise
         # (width, height, bucketed) -> DetectProgram (card) or the eager
         # detect function (CPU), least recently used first.
-        self._detect_cache: collections.OrderedDict = \
-            collections.OrderedDict()
+        self._detect_cache = ProgramCache(config.detect_cache_size)
         # Resolutions given exact programs in AUTO bucketing mode.
         self._exact_resolutions: set = set()
         self._match_programs: Dict[Tuple[int, int], MatchProgram] = {}
@@ -160,10 +158,9 @@ class SiftInstance:
     def close(self) -> None:
         """Parity: vksift_destroyInstance."""
         self._buffers = []
-        for prog in (*self._detect_cache.values(),
-                     *self._match_programs.values()):
-            _release(prog)
-        self._detect_cache.clear()
+        self._detect_cache.close()
+        for prog in self._match_programs.values():
+            prog.close()
         self._match_programs.clear()
         self._matches = None
         self._closed = True
@@ -228,18 +225,10 @@ class SiftInstance:
         # (W, H) take different arguments: the flag is part of the key.
         key = (width, height, bucketed)
         try:
-            if key in self._detect_cache:
-                self._detect_cache.move_to_end(key)
-            else:
-                # Evict before building, so that the evicted program's
-                # memory is free for the new one.
-                while (len(self._detect_cache)
-                       >= self.config.detect_cache_size):
-                    _release(self._detect_cache.popitem(last=False)[1])
-                self._detect_cache[key] = self._build_detect(
-                    width, height, b)
+            detect = self._detect_cache.get(
+                key, lambda: self._build_detect(width, height, b))
             args = (image, valid_w, valid_h) if bucketed else (image,)
-            out = self._detect_cache[key](*args)
+            out = detect(*args)
         except InvalidInputError:
             raise
         except Exception as e:  # noqa: BLE001
@@ -446,10 +435,3 @@ class SiftInstance:
             log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
         prof.export_chrome_trace(path)
         return path
-
-
-def _release(prog) -> None:
-    """Free a cached program's graph and return its memory to the pool (an
-    eager function holds none)."""
-    if isinstance(prog, (DetectProgram, MatchProgram)):
-        prog.close()

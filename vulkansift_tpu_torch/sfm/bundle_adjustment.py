@@ -29,6 +29,19 @@ one translation coordinate out of the solve instead, which removes the
 whole gauge.
 
 The Huber weight is recomputed at each outer iteration (IRLS).
+
+Recorded programs: the JAX package jits the whole solve (a ``lax.scan``
+of LM iterations). On a card the port records one LM iteration
+(:func:`lm_iteration`) as a :class:`..compiled.LoopProgram` and replays
+it ``nb_iters`` times: :func:`bundle_adjust` keeps one program per
+``(C, Pt, N, nb_cg_iters, huber_delta, fix_first_pose, fix_scale)`` in an
+LRU of ``BA_PROGRAMS`` a device, and :func:`make_distributed_ba` one per
+``(C, Pt, N / ranks)`` a function, with the ``all_reduce`` of every sum
+inside the graph (NCCL takes collectives in a capture; the warm-up runs
+them first on the capture's stream, as the capture needs). The initial
+and final costs are computed eagerly around the replays. The gauge
+(``fix_scale``) is read on the host before the replays. On the CPU (and
+on gloo ranks) the same iteration runs eagerly, ``nb_iters`` times.
 """
 
 from __future__ import annotations
@@ -40,9 +53,15 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.func import jacfwd, vmap
 
+from .. import compiled
 from ..utils.device import DeviceLike, resolve_device
 from ..parallel.mesh import DATA_AXIS, mesh_device, mesh_rank
 from .geometry import Camera, reproject
+
+# Recorded LM programs kept a device (a reconstruction pads its
+# observations to a power of two, so its shapes repeat).
+BA_PROGRAMS = 4
+PROGRAMS = compiled.ProgramCache(BA_PROGRAMS)
 
 
 class BAProblem(NamedTuple):
@@ -63,6 +82,14 @@ class BAResult(NamedTuple):
     points: torch.Tensor
     initial_cost: torch.Tensor  # mean squared reprojection error (valid obs)
     final_cost: torch.Tensor
+
+
+class LMState(NamedTuple):
+    """What an LM iteration carries to the next, all on the device."""
+
+    poses: torch.Tensor
+    points: torch.Tensor
+    lam: torch.Tensor      # 0-d damping
 
 
 Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
@@ -173,7 +200,8 @@ def _solve_schur_cg(problem: BAProblem, terms, lam: torch.Tensor,
     eye6 = torch.eye(6, dtype=dt, device=dev)
     eye3 = torch.eye(3, dtype=dt, device=dev)
     u_d = u + lam * eye6
-    v_inv = torch.linalg.inv(v + lam * eye3 + 1e-9 * eye3)
+    # inv_ex: inv checks its info on the host, which a capture refuses.
+    v_inv = torch.linalg.inv_ex(v + lam * eye3 + 1e-9 * eye3).inverse
 
     def apply_s(x):  # x: (C, 6)
         y = torch.einsum("cij,cj->ci", u_d, x)
@@ -211,31 +239,86 @@ def _solve_schur_cg(problem: BAProblem, terms, lam: torch.Tensor,
     return x, dpt
 
 
-def _lm(problem: BAProblem, *, nb_iters: int, nb_cg_iters: int,
-        huber_delta: float, init_lambda: float, fix_first_pose: bool,
-        fix_scale: bool = False, psum: Reduce = None) -> BAResult:
-    """Levenberg-Marquardt; acceptance and damping stay on the device."""
-    poses, points = problem.poses, problem.points
-    free = _gauge_free(poses) if fix_scale else None
-    lam = torch.tensor(init_lambda, dtype=poses.dtype, device=poses.device)
-    init_cost = _cost(problem, psum)
+def lm_iteration(state: LMState, problem: BAProblem, *, nb_cg_iters: int,
+                 huber_delta: float, fix_first_pose: bool,
+                 free: Optional[torch.Tensor] = None,
+                 psum: Reduce = None) -> LMState:
+    """One Levenberg-Marquardt iteration from ``state`` (the problem's own
+    poses and points are not read): the damped Schur step, its acceptance
+    and the damping update, all on the device and with no host
+    synchronisation, so that a recorded program can replay it. ``free``
+    is :func:`_gauge_free`'s mask (``fix_scale``), computed once before
+    the iterations."""
+    poses, points, lam = state
+    p2 = problem._replace(poses=poses, points=points)
+    terms = _ba_step_terms(p2, huber_delta, psum)
+    dx, dpt = _solve_schur_cg(p2, terms, lam, nb_cg_iters, free)
+    if fix_first_pose:
+        dx[0] = 0.0
+    new_poses, new_points = poses + dx, points + dpt
+    new_cost = _cost(problem._replace(poses=new_poses, points=new_points),
+                     psum)
+    accept = new_cost < terms["cost"]
+    return LMState(torch.where(accept, new_poses, poses),
+                   torch.where(accept, new_points, points),
+                   torch.where(accept, torch.clamp(lam * 0.5, min=1e-8),
+                               torch.clamp(lam * 4.0, max=1e4)))
+
+
+def _start(problem: BAProblem, init_lambda: float) -> LMState:
+    return LMState(problem.poses, problem.points,
+                   torch.full((), init_lambda, dtype=problem.poses.dtype,
+                              device=problem.poses.device))
+
+
+def _result(problem: BAProblem, state: LMState, psum: Reduce) -> BAResult:
+    return BAResult(poses=state.poses, points=state.points,
+                    initial_cost=_cost(problem, psum),
+                    final_cost=_cost(problem._replace(
+                        poses=state.poses, points=state.points), psum))
+
+
+def _lm(problem: BAProblem, *, nb_iters: int, init_lambda: float,
+        fix_scale: bool, psum: Reduce = None, **kw) -> BAResult:
+    """The eager solve: ``nb_iters`` calls of :func:`lm_iteration`."""
+    free = _gauge_free(problem.poses) if fix_scale else None
+    state = _start(problem, init_lambda)
     for _ in range(nb_iters):
-        p2 = problem._replace(poses=poses, points=points)
-        terms = _ba_step_terms(p2, huber_delta, psum)
-        dx, dpt = _solve_schur_cg(p2, terms, lam, nb_cg_iters, free)
-        if fix_first_pose:
-            dx[0] = 0.0
-        new_poses, new_points = poses + dx, points + dpt
-        new_cost = _cost(problem._replace(poses=new_poses,
-                                          points=new_points), psum)
-        accept = new_cost < terms["cost"]
-        poses = torch.where(accept, new_poses, poses)
-        points = torch.where(accept, new_points, points)
-        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-8),
-                          torch.clamp(lam * 4.0, max=1e4))
-    return BAResult(poses=poses, points=points, initial_cost=init_cost,
-                    final_cost=_cost(problem._replace(poses=poses,
-                                                      points=points), psum))
+        state = lm_iteration(state, problem, free=free, psum=psum, **kw)
+    return _result(problem, state, psum)
+
+
+def _static(problem: BAProblem, free: Optional[torch.Tensor]) -> tuple:
+    """A problem's inputs to a recorded LM iteration: the observations,
+    the intrinsics as four device scalars, and the gauge mask."""
+    dev = problem.poses.device
+    cam = torch.stack([torch.as_tensor(c, dtype=torch.float32, device=dev)
+                       for c in problem.camera])
+    return (problem.cam_idx.long(), problem.pt_idx.long(), problem.uv,
+            problem.valid, cam) + (() if free is None else (free,))
+
+
+def _replayed(problem: BAProblem, *, nb_iters: int, init_lambda: float,
+              fix_scale: bool, programs: compiled.ProgramCache,
+              key: tuple, psum: Reduce = None, **kw) -> BAResult:
+    """The solve on a card: the recorded LM iteration of ``key`` (built at
+    its first use), replayed ``nb_iters`` times."""
+    free = _gauge_free(problem.poses) if fix_scale else None
+    state, static = _start(problem, init_lambda), _static(problem, free)
+
+    def step(state, static):
+        cam_idx, pt_idx, uv, valid, cam, *held = static
+        p = BAProblem(state[0], state[1], cam_idx, pt_idx, uv, valid,
+                      Camera(*cam.unbind()))
+        return lm_iteration(LMState(*state), p,
+                            free=held[0] if held else None, psum=psum, **kw)
+
+    dev = problem.poses.device
+    with programs.lock:
+        prog = programs.get((dev, key), lambda: compiled.LoopProgram(
+            step, state, static, pool=programs.pool(dev)))
+        state = LMState(*prog(nb_iters, state, static))
+    return _result(problem, state, psum)
 
 
 def bundle_adjust(problem: BAProblem, *, nb_iters: int = 10,
@@ -248,58 +331,97 @@ def bundle_adjust(problem: BAProblem, *, nb_iters: int = 10,
     gauge-fixed (its update zeroed) by default. ``fix_scale`` holds the
     first camera and the largest translation coordinate of the others out
     of the solve (the module docstring says why); it needs
-    ``fix_first_pose`` and two or more cameras."""
+    ``fix_first_pose`` and two or more cameras. On a card the LM iteration
+    is a recorded program, replayed ``nb_iters`` times; the CPU runs it
+    eagerly."""
     if fix_scale and not (fix_first_pose and problem.poses.shape[0] > 1):
         raise ValueError("fix_scale needs fix_first_pose and two or more "
                          "cameras")
-    return _lm(problem, nb_iters=nb_iters, nb_cg_iters=nb_cg_iters,
-               huber_delta=huber_delta, init_lambda=init_lambda,
-               fix_first_pose=fix_first_pose, fix_scale=fix_scale)
+    kw = dict(nb_iters=nb_iters, nb_cg_iters=nb_cg_iters,
+              huber_delta=huber_delta, init_lambda=init_lambda,
+              fix_first_pose=fix_first_pose, fix_scale=fix_scale)
+    if problem.poses.device.type != "cuda":
+        return _lm(problem, **kw)
+    key = (problem.poses.shape[0], problem.points.shape[0],
+           problem.cam_idx.shape[0], nb_cg_iters, float(huber_delta),
+           fix_first_pose, fix_scale)
+    return _replayed(problem, programs=PROGRAMS, key=key, **kw)
 
 
-def make_distributed_ba(mesh: DeviceMesh, axis_name: str = DATA_AXIS, *,
-                        nb_iters: int = 10, nb_cg_iters: int = 20,
-                        huber_delta: float = 3.0,
-                        fix_first_pose: bool = True,
-                        device: DeviceLike = "cuda"):
-    """Multi-device BA over ``mesh``: observations split over the ranks,
-    poses and landmarks replicated, segment sums, costs and counts summed
-    with ``all_reduce``.
+class DistributedBA:
+    """:func:`make_distributed_ba`'s solver: ``ba(problem) -> BAResult``."""
 
-    Returns ``fn(problem) -> BAResult``, which every rank of the mesh calls
-    with the same whole problem; it moves this rank's contiguous share of
-    the observations and the replicated state to its device (default
-    ``"cuda"``, raising without a card). ``nb_obs`` must divide by the
-    mesh size (pad with invalid observations)."""
-    dev = mesh_device(mesh, resolve_device(device))
-    n = mesh.size()
-    me = mesh_rank(mesh, axis_name)
-    group = mesh.get_group(axis_name)
+    def __init__(self, mesh: DeviceMesh, axis_name: str, *, nb_iters: int,
+                 nb_cg_iters: int, huber_delta: float, fix_first_pose: bool,
+                 device: DeviceLike):
+        self.device = mesh_device(mesh, resolve_device(device))
+        self._n = mesh.size()
+        self._me = mesh_rank(mesh, axis_name)
+        self._group = mesh.get_group(axis_name)
+        self._kw = dict(nb_iters=nb_iters, nb_cg_iters=nb_cg_iters,
+                        huber_delta=huber_delta, init_lambda=1e-3,
+                        fix_first_pose=fix_first_pose, fix_scale=False)
+        self.programs = compiled.ProgramCache(BA_PROGRAMS)
 
-    def psum(x: torch.Tensor) -> torch.Tensor:
-        dist.all_reduce(x, group=group)
+    def _psum(self, x: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(x, group=self._group)
         return x
 
-    def run(problem: BAProblem) -> BAResult:
+    def _part(self, problem: BAProblem) -> BAProblem:
+        """This rank's contiguous share of the observations and the
+        replicated state, on its device."""
         nb_obs = problem.cam_idx.shape[0]
-        if nb_obs % n:
+        if nb_obs % self._n:
             raise ValueError(f"{nb_obs} observations are not divisible by "
-                             f"the mesh size {n}")
-        per = nb_obs // n
-        sl = slice(me * per, (me + 1) * per)
+                             f"the mesh size {self._n}")
+        per = nb_obs // self._n
+        sl = slice(self._me * per, (self._me + 1) * per)
+        dev = self.device
 
         def local(t):
             return t[sl].to(dev)
 
         cam = Camera(*(torch.as_tensor(c, dtype=torch.float32).to(dev)
                        for c in problem.camera))
-        part = BAProblem(poses=problem.poses.to(dev),
+        return BAProblem(poses=problem.poses.to(dev),
                          points=problem.points.to(dev),
                          cam_idx=local(problem.cam_idx),
                          pt_idx=local(problem.pt_idx), uv=local(problem.uv),
                          valid=local(problem.valid), camera=cam)
-        return _lm(part, nb_iters=nb_iters, nb_cg_iters=nb_cg_iters,
-                   huber_delta=huber_delta, init_lambda=1e-3,
-                   fix_first_pose=fix_first_pose, psum=psum)
 
-    return run
+    def __call__(self, problem: BAProblem) -> BAResult:
+        """Every rank of the mesh calls it with the same whole problem. On
+        cards every rank replays its recorded LM iteration (collectives
+        inside); gloo ranks run it eagerly."""
+        part = self._part(problem)
+        if self.device.type != "cuda":
+            return _lm(part, psum=self._psum, **self._kw)
+        key = (part.poses.shape[0], part.points.shape[0],
+               part.cam_idx.shape[0])
+        return _replayed(part, programs=self.programs, key=key,
+                         psum=self._psum, **self._kw)
+
+    def close(self) -> None:
+        """Free the recorded programs (every rank calls it)."""
+        self.programs.close()
+
+
+def make_distributed_ba(mesh: DeviceMesh, axis_name: str = DATA_AXIS, *,
+                        nb_iters: int = 10, nb_cg_iters: int = 20,
+                        huber_delta: float = 3.0,
+                        fix_first_pose: bool = True,
+                        device: DeviceLike = "cuda") -> DistributedBA:
+    """Multi-device BA over ``mesh``: observations split over the ranks,
+    poses and landmarks replicated, segment sums, costs and counts summed
+    with ``all_reduce``.
+
+    Returns ``fn(problem) -> BAResult`` (a :class:`DistributedBA`), which
+    every rank of the mesh calls with the same whole problem; it moves this
+    rank's contiguous share of the observations and the replicated state
+    to its device (default ``"cuda"``, raising without a card). ``nb_obs``
+    must divide by the mesh size (pad with invalid observations). On cards
+    each rank replays one recorded LM iteration a step, its
+    ``all_reduce``s inside the graph; gloo ranks run it eagerly."""
+    return DistributedBA(mesh, axis_name, nb_iters=nb_iters,
+                         nb_cg_iters=nb_cg_iters, huber_delta=huber_delta,
+                         fix_first_pose=fix_first_pose, device=device)

@@ -10,8 +10,17 @@ Conventions:
   world-to-camera: ``x_cam = R @ x_world + t``.
 * Pixels: pinhole ``(fx, fy, cx, cy)``; no distortion (rectified inputs).
 
-The 8x9 and 3x3 SVDs and the 3x3 solves go to ``torch.linalg``, as the
-JAX package leaves them to XLA's library calls.
+The 8-point solver's two small decompositions (the null vector of the
+8x9 system, the rank-2 projection of E) are written out in float64, in a
+fixed number of batched operations: inverse iteration on a Gram matrix
+(``inv_ex``) and a closed form for the 3x3. ``torch.linalg.svd`` on a card
+synchronises with the host, which a recorded program cannot hold. The
+eager ``decompose_essential`` and the 3x3 solves go to ``torch.linalg``,
+as the JAX package leaves them to XLA's library calls. On a card,
+:func:`ransac_essential` replays a recorded program
+(:class:`..compiled.LoopProgram`), one per ``(rows, nb_iters,
+threshold)`` in an LRU of ``RANSAC_PROGRAMS``, the counterpart of the JAX
+package's ``jax.jit``.
 """
 
 from __future__ import annotations
@@ -20,7 +29,14 @@ from typing import NamedTuple, Tuple, Union
 
 import torch
 
+from .. import compiled
+
 _EPS = 1e-12
+
+# Recorded RANSAC programs kept a device (``(rows, nb_iters, threshold)``
+# keys; a reconstruction pads its pairs to powers of two).
+RANSAC_PROGRAMS = 8
+PROGRAMS = compiled.ProgramCache(RANSAC_PROGRAMS)
 
 Scalar = Union[float, torch.Tensor]
 
@@ -183,21 +199,107 @@ def triangulate_linear(poses: SE3, rays: torch.Tensor, mask: torch.Tensor
 # Two-view geometry (essential matrix, RANSAC, pose recovery)
 # ---------------------------------------------------------------------------
 
+def _shift_invert(g: torch.Tensor, rel: float) -> torch.Tensor:
+    """``(g + mu I)^-1`` for symmetric PSD ``g`` (..., n, n), ``mu`` =
+    ``rel`` times its mean diagonal (and a floor that keeps a zero ``g``
+    invertible). ``inv_ex``: ``inv`` checks its info on the host."""
+    n = g.shape[-1]
+    mu = rel * torch.diagonal(g, dim1=-2, dim2=-1).mean(-1) + 1e-100
+    eye = torch.eye(n, dtype=g.dtype, device=g.device)
+    return torch.linalg.inv_ex(g + mu[..., None, None] * eye).inverse
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+def _dominant(m: torch.Tensor, steps: int) -> torch.Tensor:
+    """The unit eigenvector of the largest eigenvalue of symmetric ``m``
+    (..., n, n) by power iteration, started from its largest column."""
+    k = torch.argmax(torch.linalg.vector_norm(m, dim=-2), -1)
+    x = _unit(torch.take_along_dim(m, k[..., None, None], -1)[..., 0])
+    for _ in range(steps):
+        x = _unit((m @ x[..., None])[..., 0])
+    return x
+
+
+def _null_vector(a: torch.Tensor) -> torch.Tensor:
+    """Unit vector (..., 9) that ``a`` (..., m, 9), m >= 8, float64, maps
+    closest to zero: the right singular vector of the smallest singular
+    value, up to sign. Where ``a`` has a null space of more dimensions
+    (repeated rows), one unit vector of it; never zero.
+
+    Inverse iteration on the Gram matrix. With 8 rows (RANSAC's samples)
+    the columns are first scaled to unit norm: rays over a narrow field
+    give columns of very different sizes, whose Gram matrix would lose the
+    null vector to rounding, and the null vector of the scaled system,
+    scaled back, is the one of ``a``. With more rows the scaling would
+    weigh the residuals otherwise, so the unscaled inverse is squared ten
+    times (the smallest singular vector's share grows with the 1024th
+    power of the gap) before its largest column is taken."""
+    if a.shape[-2] <= 8:
+        d = 1.0 / torch.clamp(torch.linalg.vector_norm(a, dim=-2),
+                              min=1e-100)
+        ad = a * d[..., None, :]
+        y = _dominant(_shift_invert(ad.transpose(-1, -2) @ ad, 1e-13), 3)
+        return _unit(y * d)
+    m = _shift_invert(a.transpose(-1, -2) @ a, 1e-15)
+    for _ in range(10):
+        m = m @ m
+        m = m / m.abs().amax((-2, -1), keepdim=True)
+    return _dominant(m, 2)
+
+
+def _rank2(e: torch.Tensor) -> torch.Tensor:
+    """E (..., 3, 3), float64, with its two largest singular values
+    replaced by their mean and the smallest by 0: ``u diag(m, m, 0) vt``
+    from the SVD ``u diag(s) vt``, in closed form.
+
+    With ``M = E' E`` (eigenvalues s0^2 >= s1^2 >= s2^2), its smallest
+    eigenvalue comes from the trigonometric solution of the cubic, its
+    eigenvector ``v2`` from the largest cross product of two rows of
+    ``M - s2^2 I``, and on ``P = I - v2 v2'``
+    ``u diag(m, m, 0) vt = E ((q + p) P - P M P) / (2 p)`` with
+    ``q = s0^2 + s1^2`` and ``p = s0 s1``. A rank-1 E (p = 0) gives E / 2,
+    never zero."""
+    eye = torch.eye(3, dtype=e.dtype, device=e.device)
+    m = e.transpose(-1, -2) @ e
+    tr = torch.diagonal(m, dim1=-2, dim2=-1).sum(-1)
+    b = m - (tr / 3)[..., None, None] * eye
+    half = torch.sqrt((b * b).sum((-2, -1)) / 6)          # 0 if M = c I
+    det = (b[..., 0, :] * torch.linalg.cross(b[..., 1, :], b[..., 2, :])
+           ).sum(-1)
+    r = torch.clamp(det / torch.clamp(2 * half ** 3, min=1e-300), -1.0, 1.0)
+    low = tr / 3 + 2 * half * torch.cos(torch.acos(r) / 3 + 2 * torch.pi / 3)
+    c = m - low[..., None, None] * eye
+    cross = torch.linalg.cross(c, c.roll(-1, -2))          # rows i x i+1
+    norm = torch.linalg.vector_norm(cross, dim=-1)
+    k = torch.argmax(norm, -1)
+    v = torch.take_along_dim(cross, k[..., None, None], -2)[..., 0, :]
+    big = torch.take_along_dim(norm, k[..., None], -1)
+    # All cross products zero: M = c I, any direction serves.
+    v = torch.where(big > 0, v / torch.clamp(big, min=1e-300), eye[2])
+    proj = eye - v[..., :, None] * v[..., None, :]
+    q = tr - low
+    p = torch.sqrt(torch.clamp(
+        ((tr * tr - (m * m).sum((-2, -1))) / 2 - low * q), min=0.0))
+    fixed = e @ ((q + p)[..., None, None] * proj - proj @ m @ proj) / (
+        2 * torch.clamp(p, min=1e-300))[..., None, None]
+    return torch.where((p > 0)[..., None, None], fixed, e * 0.5)
+
+
 def essential_8pt(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
     """8-point essential matrix from >= 8 ray pairs (..., N, 3) each,
-    with the rank-2 constraint enforced: (..., 3, 3)."""
+    with the rank-2 constraint enforced: (..., 3, 3). The null vector of
+    the N x 9 system (:func:`_null_vector`) and the rank-2 projection
+    (:func:`_rank2`) are computed in float64, in a fixed number of batched
+    operations, and returned in the rays' type."""
     x1, y1 = r1[..., 0], r1[..., 1]
     x2, y2 = r2[..., 0], r2[..., 1]
     a = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2,
                      x1, y1, torch.ones_like(x1)], -1)
-    # full_matrices: with exactly 8 rows the null vector is the 9th right
-    # singular vector, which the thin SVD does not return.
-    _, _, vt = torch.linalg.svd(a, full_matrices=True)
-    e = vt[..., -1, :].reshape(*vt.shape[:-2], 3, 3)
-    u, s, vt2 = torch.linalg.svd(e)
-    s_mean = (s[..., 0] + s[..., 1]) * 0.5
-    s_fixed = torch.stack([s_mean, s_mean, torch.zeros_like(s_mean)], -1)
-    return (u * s_fixed[..., None, :]) @ vt2
+    e = _null_vector(a.to(torch.float64)).unflatten(-1, (3, 3))
+    return _rank2(e).to(r1.dtype)
 
 
 def sampson_error(e: torch.Tensor, r1: torch.Tensor,
@@ -212,6 +314,46 @@ def sampson_error(e: torch.Tensor, r1: torch.Tensor,
     return x2ex1 ** 2 / torch.clamp(denom, min=_EPS)
 
 
+def _ransac(rays1: torch.Tensor, rays2: torch.Tensor, valid: torch.Tensor,
+            u: torch.Tensor, threshold: float):
+    """RANSAC from the (nb_iters, 8) uniform draws ``u``, on the rays'
+    device, with no host synchronisation (a recorded program replays it)."""
+    n = rays1.shape[0]
+    nvalid = torch.clamp(valid.sum(), min=1)
+    # Sample 8 valid indices per hypothesis (with replacement).
+    ranks = (u * nvalid).to(torch.int64)
+    cs = torch.cumsum(valid.to(torch.int64), 0)
+    idx = torch.searchsorted(cs, ranks + 1).clamp(0, n - 1)
+    es = essential_8pt(rays1[idx], rays2[idx])           # (iters, 3, 3)
+    err = sampson_error(es, rays1, rays2)                # (iters, N)
+    scores = ((err < threshold) & valid).sum(-1)
+    e_best = torch.index_select(es, 0, torch.argmax(scores)[None])[0]
+    inl = (sampson_error(e_best, rays1, rays2) < threshold) & valid
+    return e_best, inl, inl.sum()
+
+
+def _ransac_replayed(rays1: torch.Tensor, rays2: torch.Tensor,
+                     valid: torch.Tensor, u: torch.Tensor, threshold: float):
+    """RANSAC on a card: the recorded program of ``(N, nb_iters,
+    threshold)`` (built at its first use), its draws copied in, replayed
+    once."""
+    dev, n = rays1.device, rays1.shape[0]
+    inputs = (rays1, rays2, valid, u)
+
+    def build(pool):
+        results = (torch.zeros((3, 3), dtype=rays1.dtype, device=dev),
+                   torch.zeros(n, dtype=torch.bool, device=dev),
+                   torch.zeros((), dtype=torch.int64, device=dev))
+        return compiled.LoopProgram(
+            lambda state, static: _ransac(*static, threshold), results,
+            inputs, pool=pool)
+
+    with PROGRAMS.lock:
+        prog = PROGRAMS.get((dev, n, u.shape[0], float(threshold)),
+                            lambda: build(PROGRAMS.pool(dev)))
+        return tuple(prog(1, inputs=inputs))
+
+
 def ransac_essential(rays1: torch.Tensor, rays2: torch.Tensor,
                      valid: torch.Tensor, generator: torch.Generator, *,
                      threshold: float = 1e-5, nb_iters: int = 256):
@@ -221,26 +363,20 @@ def ransac_essential(rays1: torch.Tensor, rays2: torch.Tensor,
       rays1/rays2: (N, 3) normalised rays per correspondence (padded).
       valid: (N,) bool; invalid rows never count as inliers.
       generator: a CPU ``torch.Generator``; the (nb_iters, 8) uniform
-        draws come from it on the CPU and move to the rays' device once,
-        so a run on the card and one on the CPU draw the same samples.
+        draws come from it on the CPU and move to the rays' device, so a
+        run on the card and one on the CPU draw the same samples.
       threshold: Sampson error inlier threshold (normalised coords^2).
+
+    On a card it replays the recorded program of ``(N, nb_iters,
+    threshold)``, built at its first call; the CPU runs the same function
+    eagerly.
 
     Returns (E_best, inlier_mask, nb_inliers).
     """
-    n = rays1.shape[0]
-    dev = rays1.device
-    nvalid = torch.clamp(valid.sum(), min=1)
-    u = torch.rand((nb_iters, 8), generator=generator).to(dev)
-    # Sample 8 valid indices per hypothesis (with replacement).
-    ranks = (u * nvalid).to(torch.int64)
-    cs = torch.cumsum(valid.to(torch.int64), 0)
-    idx = torch.searchsorted(cs, ranks + 1).clamp(0, n - 1)
-    es = essential_8pt(rays1[idx], rays2[idx])           # (iters, 3, 3)
-    err = sampson_error(es, rays1, rays2)                # (iters, N)
-    scores = ((err < threshold) & valid).sum(-1)
-    e_best = es[torch.argmax(scores)]
-    inl = (sampson_error(e_best, rays1, rays2) < threshold) & valid
-    return e_best, inl, inl.sum()
+    u = torch.rand((nb_iters, 8), generator=generator)
+    if rays1.device.type == "cuda":
+        return _ransac_replayed(rays1, rays2, valid, u, threshold)
+    return _ransac(rays1, rays2, valid, u.to(rays1.device), threshold)
 
 
 def decompose_essential(e: torch.Tensor, rays1: torch.Tensor,

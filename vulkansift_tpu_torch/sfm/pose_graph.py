@@ -9,6 +9,12 @@ measurement Z_ij is
 linearised with the exact Jacobian of ``torch.func.jacfwd`` and solved
 densely: pose graphs are small (hundreds of nodes), so a (6N, 6N) solve
 is the simple choice over a sparse factorisation.
+
+On a card one Gauss-Newton step is a recorded program
+(:class:`..compiled.LoopProgram`), one per ``(N, E, damping)`` in an LRU
+of ``POSE_GRAPH_PROGRAMS``, replayed ``nb_iters`` times: the counterpart
+of the JAX package's jitted ``lax.scan``. The CPU runs the same step
+eagerly.
 """
 
 from __future__ import annotations
@@ -18,7 +24,12 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd
 
+from .. import compiled
 from .geometry import SE3
+
+# Recorded Gauss-Newton programs kept a device.
+POSE_GRAPH_PROGRAMS = 4
+PROGRAMS = compiled.ProgramCache(POSE_GRAPH_PROGRAMS)
 
 
 class PoseGraph(NamedTuple):
@@ -39,28 +50,67 @@ def _edge_residual(pose_i: torch.Tensor, pose_j: torch.Tensor,
     return z.inverse().compose(ti.inverse().compose(tj)).log()
 
 
-def optimize_pose_graph(graph: PoseGraph, *, nb_iters: int = 20,
-                        damping: float = 1e-6) -> PoseGraph:
-    """Gauss-Newton with the first pose gauge-fixed."""
-    n = graph.poses.shape[0]
+def _gauss_newton_step(flat: torch.Tensor, graph: PoseGraph,
+                       damping: float) -> torch.Tensor:
+    """One Gauss-Newton step of the flat (6N,) poses, the first pose
+    gauge-fixed; no host synchronisation (a recorded program replays
+    it)."""
+    n = flat.shape[0] // 6
     ei, ej = graph.edge_i.long(), graph.edge_j.long()
     sw = torch.sqrt(graph.weight)[:, None]
 
-    def res_fn(flat):
-        ps = flat.reshape(n, 6)
+    def res_fn(f):
+        ps = f.reshape(n, 6)
         return (_edge_residual(ps[ei], ps[ej], graph.meas) * sw).reshape(-1)
 
-    eye = torch.eye(6 * n, dtype=graph.poses.dtype,
-                    device=graph.poses.device)
+    r = res_fn(flat)
+    jmat = jacfwd(res_fn)(flat).clone()      # (6E, 6N) dense
+    jmat[:, :6] = 0.0                        # gauge fix: first pose
+    h = jmat.T @ jmat + damping * torch.eye(6 * n, dtype=flat.dtype,
+                                            device=flat.device)
+    # solve_ex: solve checks its info on the host, which a capture refuses.
+    return flat + torch.linalg.solve_ex(h, -(jmat.T @ r)).result
+
+
+def _replayed(graph: PoseGraph, nb_iters: int,
+              damping: float) -> PoseGraph:
+    """The optimisation on a card: the recorded step of ``(N, E,
+    damping)`` (built at its first use), replayed ``nb_iters`` times."""
+    n = graph.poses.shape[0]
+    flat = graph.poses.reshape(-1)
+    static = (graph.edge_i.long(), graph.edge_j.long(), graph.meas,
+              graph.weight)
+
+    def step(state, static):
+        return (_gauss_newton_step(state[0], PoseGraph(None, *static),
+                                   damping),)
+
+    dev = flat.device
+    with PROGRAMS.lock:
+        prog = PROGRAMS.get(
+            (dev, n, graph.edge_i.shape[0], float(damping)),
+            lambda: compiled.LoopProgram(step, (flat,), static,
+                                         pool=PROGRAMS.pool(dev)))
+        (flat,) = prog(nb_iters, (flat,), static)
+    return graph._replace(poses=flat.reshape(n, 6))
+
+
+def _iterate(graph: PoseGraph, nb_iters: int, damping: float) -> PoseGraph:
+    """The optimisation run eagerly: ``nb_iters`` Gauss-Newton steps."""
     flat = graph.poses.reshape(-1)
     for _ in range(nb_iters):
-        r = res_fn(flat)
-        jmat = jacfwd(res_fn)(flat).clone()      # (6E, 6N) dense
-        jmat[:, :6] = 0.0                        # gauge fix: first pose
-        h = jmat.T @ jmat + damping * eye
-        dx = torch.linalg.solve(h, -(jmat.T @ r))
-        flat = flat + dx
-    return graph._replace(poses=flat.reshape(n, 6))
+        flat = _gauss_newton_step(flat, graph, damping)
+    return graph._replace(poses=flat.reshape(graph.poses.shape))
+
+
+def optimize_pose_graph(graph: PoseGraph, *, nb_iters: int = 20,
+                        damping: float = 1e-6) -> PoseGraph:
+    """Gauss-Newton with the first pose gauge-fixed. On a card the step is
+    a recorded program, replayed ``nb_iters`` times; the CPU runs it
+    eagerly."""
+    if graph.poses.device.type == "cuda":
+        return _replayed(graph, nb_iters, damping)
+    return _iterate(graph, nb_iters, damping)
 
 
 def pose_graph_cost(graph: PoseGraph) -> torch.Tensor:

@@ -3,10 +3,20 @@
 
 Port of ``vulkansift_tpu/sfm/reconstruction.py``. The device work
 (matching, RANSAC, pose recovery, the pose graph, triangulation, BA) runs
-on the device given to it; on a card the pairwise matching is the matcher
-kernel (``csrc/match_2nn.cu`` through :func:`..ops.match.match_2nn_fused`).
-The track bookkeeping (union-find over matches) stays on the host in
-NumPy: it is pointer chasing with no parallel structure.
+on the device given to it. On a card the pairwise matches, RANSAC, the
+pose graph and BA replay recorded programs (CUDA graphs): a
+:class:`..compiled.MatchProgram` over the matcher kernel
+(``csrc/match_2nn.cu``) for each pair of descriptor capacities, in an LRU
+of ``MATCH_PROGRAMS``, and the SfM modules' own programs. Their shapes
+are padded as the JAX package pads them for its jit cache, so that a
+program serves many pairs and reconstructions: descriptors to each
+frame's count rounded up to a power of two, RANSAC's rays to
+:func:`ransac_rows` (invalid past the matches), BA's observations to
+:func:`ba_rows` (invalid past the real ones). The pose recovery
+(``decompose_essential``) and the triangulation stay eager, as the JAX
+package leaves them unjitted. The track bookkeeping (union-find over
+matches) stays on the host in NumPy: it is pointer chasing with no
+parallel structure.
 
 Randomness: one CPU ``torch.Generator`` seeded with ``seed`` feeds every
 pair's RANSAC in turn, so the same seed draws the same hypotheses on the
@@ -22,11 +32,36 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import compiled
 from ..ops.match import lowe_ratio_mask, match_2nn_fused
 from ..utils.device import DeviceLike, resolve_device
 from .bundle_adjustment import BAProblem, bundle_adjust
 from .geometry import (SE3, Camera, decompose_essential, ransac_essential,
                        triangulate_linear)
+
+
+# Recorded matchers kept a device, one per pair of descriptor capacities.
+MATCH_PROGRAMS = 8
+
+
+def _pow2(n: int) -> int:
+    """The least power of two >= max(n, 2)."""
+    return 1 << (max(n, 2) - 1).bit_length()
+
+
+def ransac_rows(n: int) -> int:
+    """Rows RANSAC's inputs are padded to for ``n`` matches (the JAX
+    package's ``max(64, next power of two)``)."""
+    return max(64, _pow2(n))
+
+
+def ba_rows(n: int) -> int:
+    """Rows BA's observations are padded to for ``n`` observations (the
+    JAX package's next power of two)."""
+    return _pow2(n)
+
+
+PROGRAMS = compiled.ProgramCache(MATCH_PROGRAMS)
 
 
 @dataclasses.dataclass
@@ -60,18 +95,41 @@ def _se3(p: SE3) -> SE3:
                torch.as_tensor(p.t, dtype=torch.float32))
 
 
+def _pad_rows(x: np.ndarray, rows: int) -> np.ndarray:
+    """``x`` with zero rows appended up to ``rows``."""
+    return np.pad(x, [(0, rows - len(x))] + [(0, 0)] * (x.ndim - 1))
+
+
 def _pairwise_matches(feats: Sequence[np.ndarray], ratio: float,
                       max_pairs_gap: int, dev: torch.device):
-    """Lowe-filtered 2-NN matches for frame pairs (i, j), j - i <= gap."""
-    desc = [torch.from_numpy(np.ascontiguousarray(f["descriptor"])).to(dev)
-            for f in feats]
+    """Lowe-filtered 2-NN matches for frame pairs (i, j), j - i <= gap.
+    Each frame's descriptors are padded to a power of two; on a card a
+    recorded matcher of the pair's capacities runs, which reads the live
+    counts on the device."""
+    counts = [len(f) for f in feats]
+    desc = [torch.from_numpy(_pad_rows(np.ascontiguousarray(
+        f["descriptor"]), _pow2(len(f)))).to(dev) for f in feats]
+    if dev.type == "cuda":
+        count = [torch.tensor(c, dtype=torch.int32).to(dev) for c in counts]
+
+        def match(i, j):
+            with PROGRAMS.lock:
+                prog = PROGRAMS.get(
+                    (dev, len(desc[i]), len(desc[j])),
+                    lambda: compiled.MatchProgram(
+                        len(desc[i]), len(desc[j]), device=dev,
+                        pool=PROGRAMS.pool(dev)))
+                return prog(desc[i], count[i], desc[j], count[j])
+    else:
+        def match(i, j):
+            return match_2nn_fused(desc[i], counts[i], desc[j], counts[j])
     out = []
     for i in range(len(feats) - 1):
         for j in range(i + 1, min(i + 1 + max_pairs_gap, len(feats))):
-            na, nb = len(feats[i]), len(feats[j])
+            na, nb = counts[i], counts[j]
             if na < 8 or nb < 8:
                 continue
-            m = match_2nn_fused(desc[i], na, desc[j], nb)
+            m = match(i, j)
             keep = lowe_ratio_mask(m, ratio)[:na].cpu().numpy()
             ia = m.idx_a[:na].cpu().numpy()[keep]
             ib = m.idx_b1[:na].cpu().numpy()[keep]
@@ -113,16 +171,21 @@ def reconstruct_sequence(
     for (i, j, ia, ib) in matches:
         if len(ia) < 8:   # too few for an 8-point hypothesis
             continue
+        n = len(ia)
         uv1 = np.stack([features[i]["x"][ia], features[i]["y"][ia]], 1)
         uv2 = np.stack([features[j]["x"][ib], features[j]["y"][ib]], 1)
         r1 = camera.unproject(torch.from_numpy(uv1).to(dev))
         r2 = camera.unproject(torch.from_numpy(uv2).to(dev))
-        valid = torch.ones(len(ia), dtype=torch.bool, device=dev)
-        e, inl, nin = ransac_essential(r1, r2, valid, gen,
-                                       threshold=ransac_threshold,
-                                       nb_iters=ransac_iters)
+        # Padded rows: zero rays, invalid (never sampled nor counted).
+        npad = ransac_rows(n)
+        pad = torch.zeros((npad - n, 3), dtype=r1.dtype, device=dev)
+        valid = torch.from_numpy(np.arange(npad) < n).to(dev)
+        e, inl, nin = ransac_essential(
+            torch.cat([r1, pad]), torch.cat([r2, pad]), valid, gen,
+            threshold=ransac_threshold, nb_iters=ransac_iters)
         if int(nin) < 8:
             continue
+        inl = inl[:n]
         # Cheirality vote over the inliers only: outliers can flip the
         # (R, t) branch.
         pose = decompose_essential(e, r1, r2, inl)
@@ -238,10 +301,17 @@ def reconstruct_sequence(
     obs_valid = ok[op] & (x_cam[:, 2] > 0.05) & (reproj_err < 30.0)
 
     # --- bundle adjust ----------------------------------------------------
+    # Observations padded with invalid ones (camera 0, point 0, weight 0).
     tangents = np.stack([_se3(p).log().numpy() for p in poses])
+    pad = ba_rows(len(oc)) - len(oc)
+
+    def padded(t):
+        return torch.cat([t, t.new_zeros((pad,) + t.shape[1:])])
+
     problem = BAProblem(poses=torch.from_numpy(tangents).to(dev),
-                        points=pts.to(torch.float32), cam_idx=oc, pt_idx=op,
-                        uv=uv_t, valid=obs_valid, camera=camera)
+                        points=pts.to(torch.float32), cam_idx=padded(oc),
+                        pt_idx=padded(op), uv=padded(uv_t),
+                        valid=padded(obs_valid), camera=camera)
     # CG converges in as many steps as there are free camera parameters
     # (exact arithmetic); fewer leave each step, and so the poses, to the
     # rounding of the sums.
