@@ -1,0 +1,5 @@
+"""Pairs whose matches reached the host, over the window's seconds."""
+
+
+def read(run):
+    return run.rate()
