@@ -85,8 +85,16 @@ def test_sift_profile_main_writes_a_trace(tmp_path, capsys):
     assert out[2].startswith("trace written to ")
     trace = Path(out[2][len("trace written to "):])
     assert trace.parent == tmp_path / "tr"
-    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
     assert len(names) > 10
+    # The trace starts before the warm-up detect: three detect calls.
+    assert sum(e.get("name") == "detect_features"
+               and e.get("cat") == "vulkansift_tpu_torch"
+               for e in events) == 3
+    assert names >= {"detect_features", "instance.prepare",
+                     "get_features_number", "instance.count_sync",
+                     "download_features", "types.to_host"}
     n = int(out[0].split(", ")[-1].split()[0])
     assert n == len(sift_detect.detect(IMG, "cpu"))
 

@@ -70,6 +70,7 @@ from .ops import cuda_lib
 from .ops.match import match_2nn_fused
 from .pipeline import DetectOutput, make_detect_fn
 from .types import Features, Matches2NN
+from .utils import trace
 from .utils.device import DeviceLike, resolve_device
 
 _FEATURE_FIELDS = tuple(f.name for f in dataclasses.fields(Features))
@@ -121,7 +122,21 @@ class _Program:
 
     def _record(self, device: torch.device,
                 run: Callable[[], List[torch.Tensor]],
-                pool: Optional[GraphPool]) -> None:
+                pool: Optional[GraphPool], key: Hashable = None) -> None:
+        # Counted as programs.record_s: warm-up plus capture, less the
+        # kernel libraries' seconds inside them (kernels.load_s counts
+        # those).
+        loads = cuda_lib.thread_load_seconds()
+        with trace.span("compiled.record", type(self).__name__ + (
+                "" if key is None else f" {key}")):
+            self._record_graph(device, run, pool)
+        trace.count("programs.record_s",
+                    self.warmup_seconds + self.capture_seconds
+                    - (cuda_lib.thread_load_seconds() - loads))
+
+    def _record_graph(self, device: torch.device,
+                      run: Callable[[], List[torch.Tensor]],
+                      pool: Optional[GraphPool]) -> None:
         _check_kernels()
         if device.type != "cuda":
             raise DeviceError(f"a recorded program needs a CUDA device, "
@@ -187,10 +202,11 @@ class _Program:
         return stream
 
     def _launch(self) -> None:
-        self._graph.replay()
-        self.replays += 1
-        for wrapper, n in self._launches.items():
-            wrapper.launches += n
+        with trace.span("compiled.replay"):
+            self._graph.replay()
+            self.replays += 1
+            for wrapper, n in self._launches.items():
+                wrapper.launches += n
 
     def _replay(self, stream: torch.cuda.Stream,
                 into: Optional[Sequence[torch.Tensor]] = None
@@ -198,13 +214,14 @@ class _Program:
         """Replay, then copy the outputs into new tensors, or into
         ``into`` (tensors of the outputs' shapes) when given."""
         self._launch()
-        if into is None:
-            outs = [t.clone() for t in self._outputs]
-        else:
-            outs = list(into)
-            for dst, src in zip(outs, self._outputs):
-                dst.copy_(src, non_blocking=True)
-        self._pool.record_done(stream)
+        with trace.span("compiled.copy_out"):
+            if into is None:
+                outs = [t.clone() for t in self._outputs]
+            else:
+                outs = list(into)
+                for dst, src in zip(outs, self._outputs):
+                    dst.copy_(src, non_blocking=True)
+            self._pool.record_done(stream)
         return outs
 
     def close(self) -> None:
@@ -257,29 +274,31 @@ class DetectProgram(_Program):
             return ([getattr(out.features, f) for f in _FEATURE_FIELDS]
                     + [out.lost, out.per_octave_counts, *pyr[0], *pyr[1]])
 
-        self._record(dev, run, pool)
+        self._record(dev, run, pool, key=(width, height, bucket))
 
     def __call__(self, image, valid_w=None, valid_h=None, *,
                  out: Optional[DetectOutput] = None):
-        img = image if isinstance(image, torch.Tensor) \
-            else torch.from_numpy(np.ascontiguousarray(image))
-        if img.shape != (self.height, self.width) or img.dtype != torch.uint8:
-            raise ValueError(f"expected a ({self.height}, {self.width}) "
-                             f"uint8 image")
         if self.bucketed and (valid_w is None or valid_h is None):
             raise ValueError("a bucketed program needs valid_w and valid_h")
         if out is not None and self._return_pyramid:
             raise ValueError("out= takes no pyramid")
         with torch.cuda.device(self.device):
-            stream = self._begin()
-            if img.device.type == "cpu":
-                # Pinned staging, outside the graph: the upload does not
-                # wait for earlier frames.
-                img = img.pin_memory()
-            self._image.copy_(img, non_blocking=True)
-            if self.bucketed:
-                self._valid[0].fill_(float(valid_w))
-                self._valid[1].fill_(float(valid_h))
+            with trace.span("compiled.upload"):
+                img = image if isinstance(image, torch.Tensor) \
+                    else torch.from_numpy(np.ascontiguousarray(image))
+                if (img.shape != (self.height, self.width)
+                        or img.dtype != torch.uint8):
+                    raise ValueError(f"expected a ({self.height}, "
+                                     f"{self.width}) uint8 image")
+                stream = self._begin()
+                if img.device.type == "cpu":
+                    # Pinned staging, outside the graph: the upload does
+                    # not wait for earlier frames.
+                    img = img.pin_memory()
+                self._image.copy_(img, non_blocking=True)
+                if self.bucketed:
+                    self._valid[0].fill_(float(valid_w))
+                    self._valid[1].fill_(float(valid_h))
             outs = self._replay(stream, None if out is None else (
                 [getattr(out.features, f) for f in _FEATURE_FIELDS]
                 + [out.lost, out.per_octave_counts]))
@@ -316,7 +335,7 @@ class MatchProgram(_Program):
                                 self._desc[1], self._count[1])
             return [getattr(m, f) for f in _MATCH_FIELDS]
 
-        self._record(dev, run, pool)
+        self._record(dev, run, pool, key=(capacity_a, capacity_b))
 
     def __call__(self, desc_a: torch.Tensor, count_a: torch.Tensor,
                  desc_b: torch.Tensor, count_b: torch.Tensor) -> Matches2NN:
@@ -326,10 +345,11 @@ class MatchProgram(_Program):
                                  f"{tuple(s.shape)}, got {d.dtype} "
                                  f"{tuple(d.shape)}")
         with torch.cuda.device(self.device):
-            stream = self._begin()
-            for src, dst in zip((desc_a, desc_b, count_a, count_b),
-                                (*self._desc, *self._count)):
-                dst.copy_(src, non_blocking=True)
+            with trace.span("compiled.upload"):
+                stream = self._begin()
+                for src, dst in zip((desc_a, desc_b, count_a, count_b),
+                                    (*self._desc, *self._count)):
+                    dst.copy_(src, non_blocking=True)
             outs = self._replay(stream)
         return Matches2NN(**dict(zip(_MATCH_FIELDS, outs)))
 
@@ -362,7 +382,7 @@ class RingStepProgram(_Program):
                            self._offset, self._count_b)
             return []
 
-        self._record(dev, run, pool)
+        self._record(dev, run, pool, key=(na_l, nb_l))
 
     def start(self, desc_a: torch.Tensor, count_b) -> None:
         """Begin a fold of the A rows ``desc_a`` against B rows live up to
@@ -540,9 +560,12 @@ class ProgramCache:
         with self.lock:
             if key in self._entries:
                 self._entries.move_to_end(key)
+                trace.count("programs.hit")
                 return self._entries[key]
+            trace.count("programs.miss")
             while len(self._entries) >= max(self.size, 1):
                 _close(self._entries.popitem(last=False)[1])
+                trace.count("programs.evicted")
             entry = self._entries[key] = build()
             return entry
 

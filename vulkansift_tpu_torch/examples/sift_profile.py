@@ -23,17 +23,19 @@ from .common import load_or_synthesize
 def profile(img: np.ndarray, device: DeviceLike = "cuda", iters: int = 20,
             trace_dir: Optional[str] = None) -> dict:
     """``iters`` detect + count + download round-trips of ``img`` after one
-    warm-up detect, traced into ``trace_dir`` when given. Returns each
+    warm-up detect, traced into ``trace_dir`` when given: the trace starts
+    before the warm-up, so it shows the set-up too (on a card, the kernel
+    libraries' loads and the program's recording). Returns each
     iteration's (detect+count ms, download ms, features) and the trace's
     path (None without ``trace_dir``)."""
     rows, trace = [], None
     with SiftInstance(SiftConfig(
             max_nb_sift_per_buffer=16384,
             input_image_max_size=4096 * 4096), device=device) as inst:
-        inst.detect_features(img, 0)  # build, first-call allocations
-        inst.get_features_number(0)
         if trace_dir:
             inst.start_trace(trace_dir)
+        inst.detect_features(img, 0)  # build, first-call allocations
+        inst.get_features_number(0)
         for _ in range(iters):
             t0 = time.perf_counter()
             inst.detect_features(img, 0)
@@ -52,8 +54,8 @@ def main(argv=None):
     ap.add_argument("image", nargs="?")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--trace-dir", default=None,
-                    help="write a torch.profiler Chrome trace (the "
-                         "DebugPresenter analogue)")
+                    help="write a torch.profiler Chrome trace with the "
+                         "program's spans (the DebugPresenter analogue)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     img = load_or_synthesize(args.image, 768, 1024, seed=3)

@@ -11,7 +11,8 @@ blocking. With ``config.retain_pyramid`` each buffer keeps the gaussian and
 DoG stacks of its last detect for the scale-space debug APIs.
 ``load_runtime``, ``unload_runtime`` and ``get_available_devices`` probe
 ``torch.cuda``. ``start_trace`` / ``stop_trace``, the JAX package's XProf
-hooks, run ``torch.profiler`` and write a Chrome trace.
+hooks, run ``torch.profiler`` and write a Chrome trace with the program's
+spans (:mod:`.utils.trace`) in it.
 
 As the JAX instance compiles one program per detect resolution, a card
 instance records one :class:`~.compiled.DetectProgram` (a CUDA graph) per
@@ -31,7 +32,9 @@ same keys.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
 import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -46,6 +49,7 @@ from .ops.match import match_2nn_fused
 from .pipeline import make_detect_fn, octave_plan
 from .types import (FEATURE_DTYPE, Features, Matches2NN, features_from_numpy,
                     features_to_numpy, matches_to_numpy)
+from .utils import trace
 from .utils.device import DeviceLike, resolve_device
 from .utils.logging import logger
 
@@ -101,10 +105,13 @@ class _BufferState:
 
     def sync_counts(self) -> None:
         if self.count is None:
-            host = torch.stack([self.features.count, self.lost]).cpu()
+            with trace.span("instance.count_sync"):
+                host = torch.stack([self.features.count, self.lost]).cpu()
+                trace.count("host_reads")
+                per_octave = self.per_octave_counts.cpu()
+                trace.count("host_reads")
             self.count = int(host[0])
-            self.per_octave_counts = tuple(
-                int(c) for c in self.per_octave_counts.cpu())
+            self.per_octave_counts = tuple(int(c) for c in per_octave)
             self.lost = int(host[1])
             if self.lost > 0:
                 logger.warning(
@@ -151,7 +158,8 @@ class SiftInstance:
             for _ in range(config.sift_buffer_count)]
         self._matches: Optional[Matches2NN] = None
         self._matches_count: Optional[int] = 0
-        self._trace: Optional[Tuple[torch.profiler.profile, str]] = None
+        # (profiler, log_dir, whether the trace turned the spans on)
+        self._trace: Optional[Tuple[torch.profiler.profile, str, bool]] = None
         self._closed = False
 
     # -- lifecycle ------------------------------------------------------
@@ -179,6 +187,18 @@ class SiftInstance:
         self._dispatch_error(Result.INVALID_INPUT_ERROR)
         return InvalidInputError(msg)
 
+    @contextlib.contextmanager
+    def _device_failure(self, what: str):
+        """Report a failure inside the block, other than invalid input, as
+        a device error of the ``what`` pipeline."""
+        try:
+            yield
+        except InvalidInputError:
+            raise
+        except Exception as e:  # noqa: BLE001
+            self._dispatch_error(Result.DEVICE_ERROR)
+            raise DeviceError(f"{what} pipeline failure") from e
+
     def _check_buffer(self, buffer_id: int) -> _BufferState:
         if self._closed:
             raise self._invalid("instance is closed")
@@ -189,65 +209,66 @@ class SiftInstance:
         return self._buffers[buffer_id]
 
     # -- detection ------------------------------------------------------
+    @trace.traced
     def detect_features(self, image: np.ndarray, buffer_id: int) -> None:
         """Detect the features of an (H, W) uint8 grayscale image into a
         buffer (parity: vksift_detectFeatures). Returns without waiting
         for the device."""
-        buf = self._check_buffer(buffer_id)
-        image = np.asarray(image)
-        if image.ndim != 2 or image.dtype != np.uint8:
-            raise self._invalid("image must be 2-D uint8 grayscale")
-        height, width = image.shape
-        if width * height > self.config.input_image_max_size:
-            raise self._invalid(
-                f"image size {width}x{height} exceeds input_image_max_size "
-                f"{self.config.input_image_max_size}")
-        if min(width, height) < 32:
-            raise self._invalid("image dimensions must be >= 32")
-        b = self.config.resolution_bucket
-        if b == 0:
-            # AUTO: the first _AUTO_EXACT distinct resolutions get exact
-            # programs; any later new one takes a bucket-64 program, so a
-            # mixed-resolution sweep records a bounded set.
-            if ((width, height) in self._exact_resolutions
-                    or len(self._exact_resolutions) < _AUTO_EXACT):
-                self._exact_resolutions.add((width, height))
-                b = 1
-            else:
-                b = _AUTO_BUCKET
-        valid_w, valid_h = width, height
-        bucketed = b > 1
-        if bucketed and (width % b or height % b):
-            image = np.pad(image, ((0, -height % b), (0, -width % b)),
-                           mode="edge")
+        with trace.span("instance.prepare"):
+            buf = self._check_buffer(buffer_id)
+            image = np.asarray(image)
+            if image.ndim != 2 or image.dtype != np.uint8:
+                raise self._invalid("image must be 2-D uint8 grayscale")
             height, width = image.shape
-        # An exact (W, H) program and a bucketed one padded to the same
-        # (W, H) take different arguments: the flag is part of the key.
-        key = (width, height, bucketed)
-        try:
-            detect = self._detect_cache.get(
-                key, lambda: self._build_detect(width, height, b))
-            args = (image, valid_w, valid_h) if bucketed else (image,)
+            if width * height > self.config.input_image_max_size:
+                raise self._invalid(
+                    f"image size {width}x{height} exceeds "
+                    f"input_image_max_size {self.config.input_image_max_size}")
+            if min(width, height) < 32:
+                raise self._invalid("image dimensions must be >= 32")
+            b = self.config.resolution_bucket
+            if b == 0:
+                # AUTO: the first _AUTO_EXACT distinct resolutions get exact
+                # programs; any later new one takes a bucket-64 program, so
+                # a mixed-resolution sweep records a bounded set.
+                if ((width, height) in self._exact_resolutions
+                        or len(self._exact_resolutions) < _AUTO_EXACT):
+                    self._exact_resolutions.add((width, height))
+                    b = 1
+                else:
+                    b = _AUTO_BUCKET
+            valid_w, valid_h = width, height
+            bucketed = b > 1
+            if bucketed and (width % b or height % b):
+                image = np.pad(image, ((0, -height % b), (0, -width % b)),
+                               mode="edge")
+                height, width = image.shape
+            # An exact (W, H) program and a bucketed one padded to the same
+            # (W, H) take different arguments: the flag is part of the key.
+            key = (width, height, bucketed)
+            with self._device_failure("detection"):
+                detect = self._detect_cache.get(
+                    key, lambda: self._build_detect(width, height, b))
+        args = (image, valid_w, valid_h) if bucketed else (image,)
+        with self._device_failure("detection"):
             out = detect(*args)
-        except InvalidInputError:
-            raise
-        except Exception as e:  # noqa: BLE001
-            self._dispatch_error(Result.DEVICE_ERROR)
-            raise DeviceError("detection pipeline failure") from e
-        gauss = dogs = None
-        if self.config.retain_pyramid:
-            out, gauss, dogs = out
-        buf.features = out.features
-        buf.count = None
-        buf.per_octave_counts = out.per_octave_counts
-        buf.lost = out.lost
-        buf.input_width, buf.input_height = valid_w, valid_h
-        buf.octave_resolutions = octave_plan(self.config, width, height, b)
-        buf.gaussians, buf.dogs = gauss, dogs
-        buf.done = None
-        if self.device.type == "cuda":
-            buf.done = torch.cuda.Event()
-            buf.done.record(torch.cuda.current_stream(self.device))
+        # The buffer takes the new results; the last detect's are released.
+        with trace.span("instance.store"):
+            gauss = dogs = None
+            if self.config.retain_pyramid:
+                out, gauss, dogs = out
+            buf.features = out.features
+            buf.count = None
+            buf.per_octave_counts = out.per_octave_counts
+            buf.lost = out.lost
+            buf.input_width, buf.input_height = valid_w, valid_h
+            buf.octave_resolutions = octave_plan(self.config, width, height,
+                                                 b)
+            buf.gaussians, buf.dogs = gauss, dogs
+            buf.done = None
+            if self.device.type == "cuda":
+                buf.done = torch.cuda.Event()
+                buf.done.record(torch.cuda.current_stream(self.device))
 
     def _build_detect(self, width: int, height: int, bucket: int) -> Callable:
         """The recorded program of one key on a card, the eager function on
@@ -256,15 +277,11 @@ class SiftInstance:
                   device=self.device, bucket=bucket)
         if self.device.type != "cuda":
             return make_detect_fn(self.config, width, height, **kw)
-        prog = DetectProgram(self.config, width, height,
+        return DetectProgram(self.config, width, height,
                              pool=self._graph_pool, **kw)
-        logger.debug("detect program %dx%d (bucket %d): warm-up %.3f s, "
-                     "capture %.3f s, %d bytes added to the pool", width, height, bucket,
-                     prog.warmup_seconds, prog.capture_seconds,
-                     prog.pool_bytes)
-        return prog
 
     # -- matching -------------------------------------------------------
+    @trace.traced
     def match_features(self, buffer_id_a: int, buffer_id_b: int) -> None:
         """2-NN match buffer A's features against buffer B's (parity:
         vksift_matchFeatures). Returns without waiting: the live counts
@@ -272,31 +289,33 @@ class SiftInstance:
         buf_a = self._check_buffer(buffer_id_a)
         buf_b = self._check_buffer(buffer_id_b)
         fa, fb = buf_a.features, buf_b.features
-        try:
+        with self._device_failure("matching"):
             if self.device.type == "cuda":
                 key = (fa.capacity, fb.capacity)
-                if key not in self._match_programs:
-                    self._match_programs[key] = MatchProgram(
+                prog = self._match_programs.get(key)
+                if prog is None:
+                    trace.count("programs.miss")
+                    prog = self._match_programs[key] = MatchProgram(
                         *key, device=self.device, pool=self._graph_pool)
-                self._matches = self._match_programs[key](
-                    fa.descriptor, fa.count, fb.descriptor, fb.count)
+                else:
+                    trace.count("programs.hit")
+                self._matches = prog(fa.descriptor, fa.count,
+                                     fb.descriptor, fb.count)
             else:
                 self._matches = match_2nn_fused(fa.descriptor, fa.count,
                                                 fb.descriptor, fb.count)
-        except InvalidInputError:
-            raise
-        except Exception as e:  # noqa: BLE001
-            self._dispatch_error(Result.DEVICE_ERROR)
-            raise DeviceError("matching pipeline failure") from e
         self._matches_count = None
 
     def _sync_matches_count(self) -> int:
         # Matches2NN.count is a copy of A's count taken at dispatch, so a
         # later detect or upload into A cannot change it.
         if self._matches_count is None:
-            self._matches_count = int(self._matches.count)
+            with trace.span("instance.count_sync"):
+                self._matches_count = int(self._matches.count)
+                trace.count("host_reads")
         return self._matches_count
 
+    @trace.traced
     def get_matches_number(self) -> int:
         """Parity: vksift_getMatchesNumber; blocks until the match count is
         on the host (first call only)."""
@@ -304,6 +323,7 @@ class SiftInstance:
             raise self._invalid("instance is closed")
         return self._sync_matches_count()
 
+    @trace.traced
     def download_matches(self) -> np.ndarray:
         """Blocking download of the matches as a ``MATCH_DTYPE`` structured
         array (parity: vksift_downloadMatches)."""
@@ -314,6 +334,7 @@ class SiftInstance:
         return matches_to_numpy(self._matches, self._sync_matches_count())
 
     # -- data transfer (blocking) ---------------------------------------
+    @trace.traced
     def get_features_number(self, buffer_id: int) -> int:
         """Parity: vksift_getFeaturesNumber; blocks until the detection into
         the buffer has finished."""
@@ -321,17 +342,20 @@ class SiftInstance:
         buf.sync_counts()
         return buf.count
 
+    @trace.traced
     def get_lost_features_number(self, buffer_id: int) -> int:
         """Features the last detection dropped at the buffer capacity."""
         buf = self._check_buffer(buffer_id)
         buf.sync_counts()
         return int(buf.lost or 0)
 
+    @trace.traced
     def get_per_octave_counts(self, buffer_id: int) -> Tuple[int, ...]:
         buf = self._check_buffer(buffer_id)
         buf.sync_counts()
         return tuple(buf.per_octave_counts)
 
+    @trace.traced
     def download_features(self, buffer_id: int) -> np.ndarray:
         """Blocking download of the packed features as a ``FEATURE_DTYPE``
         structured array (parity: vksift_downloadFeatures)."""
@@ -339,6 +363,7 @@ class SiftInstance:
         buf.sync_counts()
         return features_to_numpy(buf.features, buf.count)
 
+    @trace.traced
     def upload_features(self, feats: np.ndarray, buffer_id: int) -> None:
         """Parity: vksift_uploadFeatures."""
         buf = self._check_buffer(buffer_id)
@@ -387,8 +412,11 @@ class SiftInstance:
             raise self._invalid(f"octave {octave} out of range")
         if not 0 <= scale < stacks[octave].shape[0]:
             raise self._invalid(f"scale {scale} out of range")
-        return stacks[octave][scale].float().cpu().numpy()
+        level = stacks[octave][scale].float().cpu().numpy()
+        trace.count("host_reads")
+        return level
 
+    @trace.traced
     def download_scale_space_image(self, octave: int, scale: int,
                                    buffer_id: int = 0) -> np.ndarray:
         """Blocking download of a gaussian pyramid level as float32 (parity:
@@ -396,6 +424,7 @@ class SiftInstance:
         buf = self._check_buffer(buffer_id)
         return self._pyramid_level(buf.gaussians, octave, scale)
 
+    @trace.traced
     def download_dog_image(self, octave: int, scale: int,
                            buffer_id: int = 0) -> np.ndarray:
         """Parity: vksift_downloadDoGImage."""
@@ -407,31 +436,45 @@ class SiftInstance:
         """Start a ``torch.profiler`` trace of CPU and, on a CUDA instance,
         CUDA activity (parity: ``start_trace``, the JAX package's XProf
         trace in place of the reference's DebugPresenter frame
-        delimiters, vkenv/debug_presenter.c:139-185). :meth:`stop_trace`
-        writes it into ``log_dir``. Raises if a trace is running."""
+        delimiters, vkenv/debug_presenter.c:139-185), and the program's
+        spans (:mod:`.utils.trace`) unless something else records them
+        already. :meth:`stop_trace` writes both into ``log_dir``. Raises
+        if a trace is running."""
         if self._trace is not None:
             raise RuntimeError("a trace is already running")
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
+        spans = not trace.recording()
+        if spans:
+            trace.start()
         prof.start()
-        self._trace = (prof, log_dir)
+        self._trace = (prof, log_dir, spans)
 
     def stop_trace(self) -> str:
         """Stop the trace and write it into the ``log_dir`` given to
-        :meth:`start_trace` as a Chrome trace (JSON); returns its path.
+        :meth:`start_trace` as a Chrome trace (JSON), the program's spans
+        among the profiler's events on their threads; returns its path.
         Raises without a trace running, as ``jax.profiler.stop_trace``
         does."""
         if self._trace is None:
             raise RuntimeError("No profile started")
-        prof, log_dir = self._trace
+        prof, log_dir, spans = self._trace
         self._trace = None
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.stop()
+        recorded = trace.stop() if spans else []
         os.makedirs(log_dir, exist_ok=True)
         path = os.path.join(
             log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
         prof.export_chrome_trace(path)
+        if recorded:
+            with open(path) as f:
+                doc = json.load(f)
+            doc["traceEvents"] += trace.chrome_events(
+                recorded, doc.get("baseTimeNanoseconds", 0))
+            with open(path, "w") as f:
+                json.dump(doc, f)
         return path

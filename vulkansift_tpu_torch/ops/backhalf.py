@@ -85,6 +85,7 @@ def _launch_orientation_hist(fn, flat: torch.Tensor, recs: SampleRecords,
     return hist
 
 
+@cuda_lib.counted
 def orientation_hist(flat: torch.Tensor, recs: SampleRecords,
                      count: torch.Tensor, *, ori_radius: int) -> torch.Tensor:
     """Raw (K, 36) histograms of the first ``count`` records (rows past it
@@ -99,9 +100,6 @@ def orientation_hist(flat: torch.Tensor, recs: SampleRecords,
         "orientation_hist")
     cuda_lib.count_launch(orientation_hist)
     return hist
-
-
-orientation_hist.launches = 0
 
 
 # vks_descriptor(flat, base, rec, count, desc, capacity, max_radius, vlfeat,
@@ -125,6 +123,7 @@ def _launch_descriptor(fn, flat: torch.Tensor, recs: SampleRecords,
     return buf[:cap * DESC_SIZE].view(cap, DESC_SIZE)
 
 
+@cuda_lib.counted
 def descriptor(flat: torch.Tensor, recs: SampleRecords, count: torch.Tensor,
                *, desc_radius: int, use_vlfeat: bool) -> torch.Tensor:
     """Raw (K, 128) descriptors of the first ``count`` pair records (rows
@@ -139,9 +138,6 @@ def descriptor(flat: torch.Tensor, recs: SampleRecords, count: torch.Tensor,
         recs, count, desc_radius, use_vlfeat, "descriptor")
     cuda_lib.count_launch(descriptor)
     return desc
-
-
-descriptor.launches = 0
 
 
 def keypoint_records(refined_list: Sequence[RefinedKeypoints], *,

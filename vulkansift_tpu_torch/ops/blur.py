@@ -69,6 +69,7 @@ def blur_dog_plain(x: torch.Tensor, taps: Sequence[float],
     return y, ((y - x) if with_dog else None)
 
 
+@cuda_lib.counted
 def blur_dog(x: torch.Tensor, taps: Sequence[float], with_dog: bool = True,
              out: Optional[torch.Tensor] = None,
              dog_out: Optional[torch.Tensor] = None
@@ -105,7 +106,3 @@ def blur_dog(x: torch.Tensor, taps: Sequence[float], with_dog: bool = True,
                     len(t_np), h, w)
     cuda_lib.count_launch(blur_dog)
     return y, dog
-
-
-blur_dog.launches = 0
-

@@ -21,9 +21,10 @@ pipeline with its plain counterpart; the block holds for its own thread
 only.
 
 Every wrapper counts its launches in its ``launches`` attribute through
-:func:`count_launch`. A launch made while its thread records a CUDA graph
-(:func:`recording`) runs no kernel: it goes to the recording, which the
-graph's owner adds to the counts at each replay.
+:func:`count_launch` (:func:`counted` gives it the attribute and reports
+it in ``utils.trace.counters``). A launch made while its thread records a
+CUDA graph (:func:`recording`) runs no kernel: it goes to the recording,
+which the graph's owner adds to the counts at each replay.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 import torch
 
 from ..errors import DeviceError
+from ..utils import trace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -64,7 +66,7 @@ def nvcc_flags(name: str) -> Tuple[str, ...]:
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
-_local = threading.local()  # .force_plain, .recording (see below)
+_local = threading.local()  # .force_plain, .recording, .load_s (below)
 
 
 def nvcc_path() -> str:
@@ -90,6 +92,26 @@ def build(verbose: bool = False) -> Dict[str, dict]:
     parallel. Returns per source: the library path, whether it was built,
     the wall seconds of the whole build and nvcc's output (which holds the
     register and shared-memory report when ``verbose``)."""
+    t0 = time.perf_counter()
+    try:
+        with trace.span("kernels.build"):
+            return _build(verbose)
+    finally:
+        _loaded(time.perf_counter() - t0)
+
+
+def _loaded(seconds: float) -> None:
+    trace.count("kernels.load_s", seconds)
+    _local.load_s = thread_load_seconds() + seconds
+
+
+def thread_load_seconds() -> float:
+    """Seconds the calling thread has spent building and loading the
+    kernel libraries (its share of the ``kernels.load_s`` counter)."""
+    return getattr(_local, "load_s", 0.0)
+
+
+def _build(verbose: bool) -> Dict[str, dict]:
     extra = ("-Xptxas", "-v") if verbose else ()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -128,10 +150,13 @@ def library(name: str) -> ctypes.CDLL:
     use)."""
     with _lock:
         if name not in _libs:
-            path = _lib_path(name)
-            if not path.exists():
-                build()
-            _libs[name] = ctypes.CDLL(str(path))
+            with trace.span("kernels.load", name):
+                path = _lib_path(name)
+                if not path.exists():
+                    build()
+                t0 = time.perf_counter()
+                _libs[name] = ctypes.CDLL(str(path))
+                _loaded(time.perf_counter() - t0)
         return _libs[name]
 
 
@@ -195,6 +220,14 @@ def force_plain() -> Iterator[None]:
         yield
     finally:
         _local.force_plain = prev
+
+
+def counted(wrapper):
+    """Give a kernel wrapper its ``launches`` count, reported as
+    ``launches.<name>`` by ``utils.trace.counters``."""
+    wrapper.launches = 0
+    trace.gauge(f"launches.{wrapper.__name__}", lambda: wrapper.launches)
+    return wrapper
 
 
 def count_launch(wrapper) -> None:

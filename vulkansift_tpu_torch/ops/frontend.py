@@ -24,6 +24,7 @@ _ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3
              + (ctypes.c_float, ctypes.c_void_p))
 
 
+@cuda_lib.counted
 def frontend(dog: torch.Tensor, dog_threshold: float
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(code u8 (S, H-2, W-2), row counts i32 (S, H-2)) of one octave's
@@ -46,13 +47,9 @@ def frontend(dog: torch.Tensor, dog_threshold: float
     return code, counts
 
 
-frontend.launches = 0
-
-
 def frontend_candidates(dog: torch.Tensor, dog_threshold: float,
                         capacity: int) -> Tuple[Candidates, torch.Tensor]:
     """Candidates of one octave at ``capacity`` (raster order, with each
     candidate's own walk code) and the code field for the refinement."""
     code, counts = frontend(dog, dog_threshold)
     return compact_candidates(code, counts, capacity), code
-

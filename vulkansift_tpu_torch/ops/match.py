@@ -164,6 +164,7 @@ def _device_count(count: Count, dev: torch.device) -> torch.Tensor:
     return torch.full((), int(count), dtype=torch.int32, device=dev)
 
 
+@cuda_lib.counted
 def match_2nn_tiles(desc_a: torch.Tensor, count_a: Count,
                     desc_b: torch.Tensor, count_b: Count) -> Top2:
     """Raw 2-NN ``(d2_1, i1, d2_2, i2)``, int32 of shape (NA,), of every A
@@ -190,9 +191,6 @@ def match_2nn_tiles(desc_a: torch.Tensor, count_a: Count,
                     *(o.data_ptr() for o in out), na, nb)
     cuda_lib.count_launch(match_2nn_tiles)
     return out
-
-
-match_2nn_tiles.launches = 0
 
 
 def _decode(raw: Top2, count_a: Count) -> Matches2NN:

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .config import DESC_SIZE
+from .utils import trace
 from .utils.device import DeviceLike, resolve_device
 
 # NumPy structured dtype bit-compatible with vksift_Feature
@@ -107,10 +108,12 @@ def features_to_numpy(feats: Features,
     """Pack the valid features into a ``FEATURE_DTYPE`` structured array.
     Blocking: reads the count (when not given) and copies the valid prefix
     to the host."""
-    n = int(feats.count) if count is None else int(count)
-    out = np.zeros((n,), FEATURE_DTYPE)
-    for name in _FIELDS:
-        out[name] = getattr(feats, name)[:n].cpu().numpy()
+    with trace.span("types.to_host"):
+        n = _host_count(feats.count, count)
+        out = np.zeros((n,), FEATURE_DTYPE)
+        for name in _FIELDS:
+            out[name] = getattr(feats, name)[:n].cpu().numpy()
+            trace.count("host_reads")
     return out
 
 
@@ -149,10 +152,21 @@ def matches_to_numpy(m: Matches2NN, count: Optional[int] = None) -> np.ndarray:
     """Pack the valid matches into a ``MATCH_DTYPE`` structured array.
     Blocking: reads the count (when not given) and copies only the valid
     prefix to the host."""
-    n = int(m.count) if count is None else int(count)
-    out = np.zeros((n,), MATCH_DTYPE)
-    for name in ("idx_a", "idx_b1", "idx_b2"):
-        out[name] = getattr(m, name)[:n].cpu().numpy().astype(np.uint32)
-    for name in ("dist_a_b1", "dist_a_b2"):
-        out[name] = getattr(m, name)[:n].cpu().numpy()
+    with trace.span("types.to_host"):
+        n = _host_count(m.count, count)
+        out = np.zeros((n,), MATCH_DTYPE)
+        for name in ("idx_a", "idx_b1", "idx_b2"):
+            out[name] = getattr(m, name)[:n].cpu().numpy().astype(np.uint32)
+            trace.count("host_reads")
+        for name in ("dist_a_b1", "dist_a_b2"):
+            out[name] = getattr(m, name)[:n].cpu().numpy()
+            trace.count("host_reads")
     return out
+
+
+def _host_count(on_device: torch.Tensor, count: Optional[int]) -> int:
+    """``count``, or the device count read by the host when it is None."""
+    if count is not None:
+        return int(count)
+    trace.count("host_reads")
+    return int(on_device)
