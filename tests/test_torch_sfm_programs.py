@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import program_stubs
 import test_sfm
 from test_torch_sfm import TCAM, _port_problem, _sequence_features
 from vulkansift_tpu import sfm as jsfm
@@ -343,18 +344,7 @@ def graphs_as_calls(monkeypatch):
         self._outputs = []
 
     monkeypatch.setattr(compiled._Program, "_record", record)
-    monkeypatch.setattr(compiled._Program, "_begin", lambda self: None)
-    monkeypatch.setattr(compiled.GraphPool, "record_done",
-                        lambda self, stream: None)
-    monkeypatch.setattr(torch.cuda, "device", lambda device: _NoDevice())
-
-
-class _NoDevice:
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
+    program_stubs.card_stubs(monkeypatch)
 
 
 def test_program_plumbing_equals_the_eager_paths(graphs_as_calls):

@@ -3,13 +3,14 @@ the CPU: spans nest under the root of their public call and share its id,
 nothing is recorded while they are off, ``host_reads`` counts each
 blocking read of a frame's and a match's download, the program cache
 counts hits, misses and evictions, a recorded program's and the kernel
-libraries' spans and seconds (the graph and the library stubbed), and
+libraries' spans and seconds (the graph and the library stubbed), the
+bytes a recorded program's call stages in and copies out, and
 ``stop_trace`` writes the spans into the profiler's Chrome trace.
 Counters are process-wide, so every test reads deltas."""
 
+import dataclasses
 import json
 import threading
-import time
 
 import pytest
 import torch
@@ -19,6 +20,7 @@ import vulkansift_tpu_torch as vt
 from vulkansift_tpu_torch import compiled
 from vulkansift_tpu_torch.ops import blur, cuda_lib
 from vulkansift_tpu_torch.utils import trace
+from program_stubs import graphs_as_calls  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 IMG = make_blob_image(96, 128, seed=5)
@@ -167,52 +169,6 @@ def test_stop_trace_writes_the_program_spans(tmp_path):
         "detect_features", "instance.prepare", "instance.store"]
 
 
-class _CallGraph:
-    """A captured graph stood in for by the recorded function: a replay
-    writes its results into the outputs of the recording."""
-
-    def __init__(self, run, outs):
-        self.run, self.outs = run, outs
-
-    def replay(self):
-        for dst, src in zip(self.outs, self.run()):
-            dst.copy_(src)
-
-    def reset(self):
-        pass
-
-
-class _NoDevice:
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-
-@pytest.fixture
-def graphs_as_calls(monkeypatch):
-    """``compiled._Program`` with its CUDA graph replaced by a call of the
-    recorded function (and the card's stream, event and pinned memory
-    stubbed), so that a program's plumbing runs on the CPU."""
-    def record_graph(self, device, run, pool):
-        self.device, self._pool = device, pool or compiled.GraphPool()
-        t0 = time.perf_counter()
-        with cuda_lib.recording() as launches:
-            outs = run()
-        self.warmup_seconds, self.capture_seconds = \
-            time.perf_counter() - t0, 0.0
-        self._graph = _CallGraph(run, outs)
-        self.replays, self._launches, self._outputs = 0, launches, outs
-
-    monkeypatch.setattr(compiled._Program, "_record_graph", record_graph)
-    monkeypatch.setattr(compiled._Program, "_begin", lambda self: None)
-    monkeypatch.setattr(compiled.GraphPool, "record_done",
-                        lambda self, stream: None)
-    monkeypatch.setattr(torch.cuda, "device", lambda device: _NoDevice())
-    monkeypatch.setattr(torch.Tensor, "pin_memory", lambda self: self)
-
-
 def test_compiled_spans_of_a_program(graphs_as_calls, spans):
     """A program's build is one ``compiled.record`` span with its key and
     adds to ``programs.record_s``; a call is upload, replay and copy-out,
@@ -233,6 +189,54 @@ def test_compiled_spans_of_a_program(graphs_as_calls, spans):
     assert prog.replays == 1
     assert torch.equal(out.features.x, want.features.x)
     assert int(out.features.count) == int(want.features.count)
+
+
+def test_byte_counters_of_a_detect_and_a_match(graphs_as_calls):
+    """With spans off, a detect program's call adds its frame, from host
+    memory, to ``compiled.upload_bytes`` (a bucketed program's valid-size
+    fills are no upload) and every byte of its result, the retained
+    pyramid included, to ``compiled.copy_out_bytes``; a match program's
+    call adds its two descriptor blocks and two counts (on the CPU, in
+    host memory), and its matches. Each detect total equals the one the
+    program worked out when it was recorded."""
+    assert not trace.recording()
+    cfg = vt.SiftConfig(max_nb_sift_per_buffer=512)
+    det = compiled.DetectProgram(cfg, 128, 96, device="cpu",
+                                 return_pyramid=True)
+    before = trace.counters()
+    out, gauss, dogs = det(IMG)
+    d = _delta(before)
+    result = [getattr(out.features, f.name)
+              for f in dataclasses.fields(out.features)]
+    result += [out.lost, out.per_octave_counts, *gauss, *dogs]
+    copied = sum(t.nbytes for t in result)
+    assert copied > 512 * (9 * 4 + 128) + sum(g.nbytes for g in gauss)
+    assert d["compiled.upload_bytes"] == det.upload_bytes == 96 * 128
+    assert d["compiled.copy_out_bytes"] == det.output_bytes == copied
+    assert d["host_reads"] == 0
+
+    match = compiled.MatchProgram(512, 256, device="cpu")
+    before = trace.counters()
+    m = match(out.features.descriptor, out.features.count,
+              out.features.descriptor[:256], out.features.count)
+    d = _delta(before)
+    matches = sum(getattr(m, f.name).nbytes for f in dataclasses.fields(m))
+    assert d["compiled.upload_bytes"] == (512 + 256) * 128 + 2 * 4
+    assert d["compiled.copy_out_bytes"] == match.output_bytes == matches \
+        == 512 * (3 * 4 + 2 * 4) + 4
+    before = trace.counters()
+    det(IMG)
+    det(IMG)
+    d = _delta(before)
+    assert (d["compiled.upload_bytes"], d["compiled.copy_out_bytes"]) == \
+        (2 * 96 * 128, 2 * copied)
+
+    bucketed = compiled.DetectProgram(cfg, 128, 96, bucket=32, device="cpu")
+    before = trace.counters()
+    bucketed(IMG, 120, 90)
+    d = _delta(before)
+    assert d["compiled.upload_bytes"] == bucketed.upload_bytes == 96 * 128
+    assert d["compiled.copy_out_bytes"] == bucketed.output_bytes
 
 
 def test_kernel_library_spans_and_seconds(monkeypatch, tmp_path, spans):
@@ -290,7 +294,8 @@ def test_counters_read_the_wrappers_launches():
                       "launches.orientation_hist", "launches.descriptor",
                       "launches.match_2nn_tiles"}
     assert set(d) >= {"programs.hit", "programs.miss", "programs.evicted",
-                      "programs.record_s", "kernels.load_s", "host_reads"}
+                      "programs.record_s", "kernels.load_s", "host_reads",
+                      "compiled.upload_bytes", "compiled.copy_out_bytes"}
 
 
 def test_counters_and_spans_from_many_threads(spans):

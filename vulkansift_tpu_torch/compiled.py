@@ -118,7 +118,16 @@ class GraphPool:
 
 
 class _Program:
-    """A function of static input buffers recorded as a CUDA graph."""
+    """A function of static input buffers recorded as a CUDA graph.
+
+    ``output_bytes``, worked out once from the static shapes at record
+    time, is what a call copies out of the graph's outputs; each call adds
+    it to the counter ``compiled.copy_out_bytes``. A detect or match call
+    adds to ``compiled.upload_bytes`` the static inputs it copies from host
+    memory: an input already on the card is a device copy, not an
+    upload."""
+
+    _outputs: Optional[List[torch.Tensor]] = None
 
     def _record(self, device: torch.device,
                 run: Callable[[], List[torch.Tensor]],
@@ -130,6 +139,7 @@ class _Program:
         with trace.span("compiled.record", type(self).__name__ + (
                 "" if key is None else f" {key}")):
             self._record_graph(device, run, pool)
+        self.output_bytes = sum(t.nbytes for t in self._outputs or ())
         trace.count("programs.record_s",
                     self.warmup_seconds + self.capture_seconds
                     - (cuda_lib.thread_load_seconds() - loads))
@@ -177,12 +187,7 @@ class _Program:
         self._graph: Optional[torch.cuda.CUDAGraph] = graph
         self.replays = 0
         self._launches = launches
-        self._outputs: Optional[List[torch.Tensor]] = outs
-
-    @property
-    def output_bytes(self) -> int:
-        """Bytes a call copies out of the graph's outputs."""
-        return sum(t.nbytes for t in self._outputs)
+        self._outputs = outs
 
     @property
     def launches(self) -> Dict[str, int]:
@@ -222,6 +227,7 @@ class _Program:
                 for dst, src in zip(outs, self._outputs):
                     dst.copy_(src, non_blocking=True)
             self._pool.record_done(stream)
+            trace.count("compiled.copy_out_bytes", self.output_bytes)
         return outs
 
     def close(self) -> None:
@@ -275,6 +281,7 @@ class DetectProgram(_Program):
                     + [out.lost, out.per_octave_counts, *pyr[0], *pyr[1]])
 
         self._record(dev, run, pool, key=(width, height, bucket))
+        self.upload_bytes = self._image.nbytes
 
     def __call__(self, image, valid_w=None, valid_h=None, *,
                  out: Optional[DetectOutput] = None):
@@ -295,6 +302,7 @@ class DetectProgram(_Program):
                     # Pinned staging, outside the graph: the upload does
                     # not wait for earlier frames.
                     img = img.pin_memory()
+                    trace.count("compiled.upload_bytes", self.upload_bytes)
                 self._image.copy_(img, non_blocking=True)
                 if self.bucketed:
                     self._valid[0].fill_(float(valid_w))
@@ -347,9 +355,13 @@ class MatchProgram(_Program):
         with torch.cuda.device(self.device):
             with trace.span("compiled.upload"):
                 stream = self._begin()
+                staged = 0
                 for src, dst in zip((desc_a, desc_b, count_a, count_b),
                                     (*self._desc, *self._count)):
                     dst.copy_(src, non_blocking=True)
+                    if src.device.type == "cpu":
+                        staged += dst.nbytes
+                trace.count("compiled.upload_bytes", staged)
             outs = self._replay(stream)
         return Matches2NN(**dict(zip(_MATCH_FIELDS, outs)))
 

@@ -28,6 +28,12 @@ Counters are process-wide sums, always on, read together by
 * ``host_reads``: blocking reads of device data by the host, one a
   tensor copied (counted on every device, so a CPU run counts what a card
   run reads);
+* ``compiled.upload_bytes``, ``compiled.copy_out_bytes``: bytes a
+  recorded program's call copies from host memory into its static inputs
+  (a detect's frame; a match's descriptor blocks and counts where they
+  are on the host, which on a card they are not) and copies out of its
+  static outputs (a detect's retained pyramid included), at the
+  ``compiled.upload`` and ``compiled.copy_out`` spans;
 * ``launches.<wrapper>``: each kernel wrapper's own ``launches`` count,
   read from the wrapper (:func:`gauge`; ``ops.cuda_lib.counted``
   registers every wrapper).
@@ -227,7 +233,8 @@ def chrome_events(spans: List[Span], base_ns: int = 0) -> List[dict]:
 _lock = threading.Lock()
 _counts: Dict[str, float] = {
     "programs.hit": 0, "programs.miss": 0, "programs.evicted": 0,
-    "programs.record_s": 0.0, "kernels.load_s": 0.0, "host_reads": 0}
+    "programs.record_s": 0.0, "kernels.load_s": 0.0, "host_reads": 0,
+    "compiled.upload_bytes": 0, "compiled.copy_out_bytes": 0}
 _gauges: Dict[str, Callable[[], float]] = {}
 
 
